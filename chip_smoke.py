@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; every check asserts, and any failure exits
+non-zero with no result line:
+
+1. ``env``: the card, its power limit, torch / CUDA versions, the TF32
+   flags, and the time to build the CUDA kernels from ``csrc/``.
+2. one line per kernel: each hand-written kernel against its plain
+   PyTorch version on the card, at the engine's shapes and at edge
+   shapes (ragged budgets, budget 1, all-padded coefficients), under
+   the parity tolerance of tests/conftest.py:42-43; then its time
+   (CUDA events, after warm-up) beside the plain version's time and
+   the least time the card could take (``bound_ms``).
+3. end to end: ``engine.run`` at full width on ``susy_stream`` with
+   d = 18, T = 1000, under ``backend="kernels"``: SV periodic and SV
+   dynamic (m = 32, budget 1024), RFF dynamic (m = 32, D = 2048),
+   linear periodic (m = 1024).  Each run must launch its kernels,
+   agree with ``backend="reference"`` on the card (same sync rounds and
+   bytes, losses within tolerance), and repeat bitwise.
+
+The last lines are the card's ``nvidia-smi`` name and power limit, the
+``kernels`` summary, and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the repository's ``src/`` beside this file, it
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import os
+
+# cuBLAS needs a fixed workspace before CUDA initializes for
+# torch.use_deterministic_algorithms(True)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import collections  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+# THE parity tolerance of the repository (tests/conftest.py:42-43).
+PARITY_RTOL = 1e-3
+PARITY_ATOL = 5e-3
+
+# Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+T_ROUNDS = 1000
+D_IN = 18                 # SUSY's 18 features
+GAMMA = 0.05
+M_KERNEL = 32             # learners of the SV and RFF runs
+BUDGET = 1024             # SV budget tau
+N_FEATURES = 2048         # RFF features D
+M_LINEAR = 1024           # learners of the linear run
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time for the work: the larger of bytes over the memory
+    rate and fp32 operations over the fp32 peak."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
+    """Time ``fn`` on the card after ``warmup`` calls.
+
+    ``ms``: CUDA events around ``iters`` back-to-back calls, over
+    ``iters`` -- what one call costs the main path, host enqueue
+    included (for a launch-bound kernel the host sets it);
+    ``device_ms``: the summed durations of the CUDA kernels one call
+    launched, from ``torch.profiler``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if dev_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"ms": ms, "device_ms": dev_us / 1e3 / iters}
+
+
+def close(got, want, label: str) -> float:
+    got = got.detach().cpu().numpy()
+    want = want.detach().cpu().numpy()
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    assert np.all(np.isfinite(got)), f"{label}: non-finite kernel output"
+    np.testing.assert_allclose(got, want, rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                               err_msg=label)
+    return float(np.max(np.abs(got - want))) if got.size else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def check_sv_predict(fused, ref, dev, gen):
+    kinds = ["gaussian", "linear", "poly"]
+    cases = [(32, 1024), (32, 1), (32, 127), (32, 128), (32, 129),
+             (32, 1000), (3, 130)]
+    errs = {}
+    for kind in kinds:
+        for B, N in cases:
+            X = torch.randn(B, D_IN, generator=gen).to(dev)
+            SV = torch.randn(B, N, D_IN, generator=gen).to(dev)
+            A = torch.randn(B, N, generator=gen).to(dev)
+            A = A * (torch.rand(B, N, generator=gen).to(dev) < 0.8)
+            for label, a in (("", A), (" padded", torch.zeros_like(A))):
+                kw = dict(kind=kind, gamma=GAMMA)
+                err = close(fused.sv_predict(X, SV, a, **kw),
+                            ref.sv_predict_ref(X, SV, a, **kw),
+                            f"sv_predict {kind} B={B} N={N}{label}")
+                if (B, N) == (32, 1024) and not label:
+                    errs[kind] = err
+            # a row's floats do not depend on the batch around it
+            one = fused.sv_predict(X[1:2], SV[1:2], A[1:2], kind=kind,
+                                   gamma=GAMMA)
+            assert torch.equal(one[0], fused.sv_predict(
+                X, SV, A, kind=kind, gamma=GAMMA)[1]), "row-bitwise"
+    B, N = 32, 1024
+    X = torch.randn(B, D_IN, generator=gen).to(dev)
+    SV = torch.randn(B, N, D_IN, generator=gen).to(dev)
+    A = torch.randn(B, N, generator=gen).to(dev)
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    ms = time_ms(lambda: fused.sv_predict(X, SV, A, **kw))
+    plain = time_ms(lambda: ref.sv_predict_ref(X, SV, A, **kw))
+    nbytes = 4 * (B * D_IN + B * N * D_IN + B * N + B)
+    flops = B * N * (4 * D_IN + 8)      # cross, yy, the gaussian, a * k
+    return errs, ms, plain, bound_ms(nbytes, flops)
+
+
+def check_quadform(qf, ref, dev, gen):
+    kinds = ["gaussian", "linear", "poly"]
+    cases = [(96, 1024, 1024), (3, 1, 1), (3, 31, 130), (3, 127, 129),
+             (3, 128, 128), (3, 130, 31), (2, 1000, 1000)]
+    errs = {}
+    for kind in kinds:
+        for P, M, N in cases:
+            X = torch.randn(P, M, D_IN, generator=gen).to(dev)
+            Y = torch.randn(P, N, D_IN, generator=gen).to(dev)
+            a = torch.randn(P, M, generator=gen).to(dev)
+            b = torch.randn(P, N, generator=gen).to(dev)
+            for label, aa in (("", a), (" padded", torch.zeros_like(a))):
+                kw = dict(kind=kind, gamma=GAMMA)
+                err = close(qf.quadform(X, Y, aa, b, **kw),
+                            ref.quadform_ref(X, Y, aa, b, **kw),
+                            f"quadform {kind} P={P} M={M} N={N}{label}")
+                if (P, M) == (96, 1024) and not label:
+                    errs[kind] = err
+    P, M, N = 96, 1024, 1024
+    X = torch.randn(P, M, D_IN, generator=gen).to(dev)
+    Y = torch.randn(P, N, D_IN, generator=gen).to(dev)
+    a = torch.randn(P, M, generator=gen).to(dev)
+    b = torch.randn(P, N, generator=gen).to(dev)
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    ms = time_ms(lambda: qf.quadform(X, Y, a, b, **kw), iters=20)
+    plain = time_ms(lambda: ref.quadform_ref(X, Y, a, b, **kw), iters=5)
+    nbytes = 4 * P * (M * D_IN + N * D_IN + M + N + 1)
+    flops = P * M * N * (2 * D_IN + 8) + P * (M + N) * 2 * D_IN
+    return errs, ms, plain, bound_ms(nbytes, flops)
+
+
+def _step_args(B, D, d, featurize, dev, gen):
+    X = torch.randn(B, d, generator=gen).to(dev)
+    y = torch.where(torch.rand(B, generator=gen) < 0.5, -1.0, 1.0).to(dev)
+    w = (0.1 * torch.randn(B, D, generator=gen)).to(dev)
+    b = torch.randn(B, generator=gen).to(dev)
+    kw = {}
+    if featurize:
+        kw = dict(W=torch.randn(D, d, generator=gen).to(dev),
+                  bias=(2 * np.pi * torch.rand(D, generator=gen)).to(dev),
+                  scale=float(np.sqrt(2.0 / D)))
+    return (X, y, w, b), kw
+
+
+def check_primal_step(fused, ref, dev, gen, featurize: bool):
+    if featurize:
+        cases = [(32, 2048, D_IN), (1, 1, D_IN), (3, 127, D_IN),
+                 (3, 129, D_IN), (129, 130, 7), (127, 256, D_IN)]
+        main = (32, 2048)
+    else:
+        cases = [(1024, D_IN, D_IN), (1, 1, 1), (127, D_IN, D_IN),
+                 (129, 130, 130), (130, 7, 7)]
+        main = (1024, D_IN)
+    errs = {}
+    for loss in ("hinge", "squared"):
+        for B, D, d in cases:
+            args, kw = _step_args(B, D, d, featurize, dev, gen)
+            got = fused.primal_step(*args, loss=loss, eta=0.5, lam=0.01, **kw)
+            want = ref.primal_step_ref(*args, loss=loss, eta=0.5, lam=0.01,
+                                       **kw)
+            err = max(close(g, w, f"primal_step {'rff' if featurize else 'linear'}"
+                            f"/{name} {loss} B={B} D={D}")
+                      for g, w, name in zip(got, want, ["w", "b", "ell", "yhat"]))
+            if (B, D) == main:
+                errs[loss] = err
+    B, D = main
+    args, kw = _step_args(B, D, D_IN, featurize, dev, gen)
+    ms = time_ms(lambda: fused.primal_step(*args, loss="hinge", **kw))
+    plain = time_ms(lambda: ref.primal_step_ref(*args, loss="hinge", **kw))
+    if featurize:
+        nbytes = 4 * (B * D_IN + 2 * B + 2 * B * D + D * D_IN + D + 3 * B)
+        flops = B * D * 2 * (2 * D_IN + 3) + B * D * 4
+    else:
+        nbytes = 4 * (B * D_IN + 2 * B + 2 * B * D + 3 * B)
+        flops = B * D * 6
+    return errs, ms, plain, bound_ms(nbytes, flops)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: engine.run end to end
+# ---------------------------------------------------------------------------
+
+
+def e2e_configs():
+    from repro_torch.core.learners import LearnerConfig
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.core.rff import RFFSpec
+    from repro_torch.core.rkhs import KernelSpec
+
+    sv = LearnerConfig(algo="kernel_sgd", loss="hinge", eta=0.5, lam=0.01,
+                       budget=BUDGET, dim=D_IN,
+                       kernel=KernelSpec("gaussian", gamma=GAMMA))
+    rff = RFFSpec(dim=D_IN, num_features=N_FEATURES, gamma=GAMMA, seed=0)
+    lin = LearnerConfig(algo="linear_sgd", loss="hinge", dim=D_IN)
+    return [
+        ("sv_periodic", sv, M_KERNEL, ProtocolConfig(kind="periodic", period=50),
+         ("sv_predict",)),
+        ("sv_dynamic", sv, M_KERNEL,
+         ProtocolConfig(kind="dynamic", delta=16.0, mini_batch=10),
+         ("sv_predict", "quadform")),
+        ("rff_dynamic", rff, M_KERNEL,
+         ProtocolConfig(kind="dynamic", delta=9.0, mini_batch=10),
+         ("rff_step",)),
+        ("linear_periodic", lin, M_LINEAR,
+         ProtocolConfig(kind="periodic", period=50), ("linear_step",)),
+    ]
+
+
+def _recording(sub, dists: list):
+    """``sub`` with every distance its dynamic check computes appended
+    to ``dists`` (numbers unchanged: the check already reads the device)."""
+    base = type(sub)
+
+    class Recording(base):
+        def dist_to_ref(self, models, ref):
+            d = base.dist_to_ref(self, models, ref)
+            dists.append(d.cpu().numpy().copy())
+            return d
+
+    return Recording(**{f.name: getattr(sub, f.name)
+                        for f in dataclasses.fields(sub)})
+
+
+def run_e2e(ops, totals):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine, substrate
+    from repro_torch.data.streams import susy_stream
+
+    for name, learner, m, pcfg, kernels in e2e_configs():
+        X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = engine.run(learner, pcfg, X, Y, backend="kernels", device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            assert counts.get(k, 0) > 0, f"{name}: {k} never launched"
+            totals[k] = totals.get(k, 0) + counts[k]
+        t0 = time.perf_counter()
+        want = engine.run(learner, pcfg, X, Y, backend="reference",
+                          device="cuda")
+        torch.cuda.synchronize()
+        ref_secs = time.perf_counter() - t0
+        # the repeat records the distances its checks compare with delta,
+        # and the device time of every CUDA kernel it launches
+        dists: list = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = engine.run(
+                _recording(substrate.substrate_of(learner, backend="kernels"),
+                           dists), pcfg, X, Y, device="cuda")
+            torch.cuda.synchronize()
+        by_kernel: collections.Counter = collections.Counter()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_kernel[e.name[:60]] += e.time_range.elapsed_us() / 1e6
+        device_s = sum(by_kernel.values())
+        check = {}
+        if pcfg.kind == "dynamic":
+            d = np.concatenate(dists)
+            check = {"checks": len(dists), "delta": pcfg.delta,
+                     "dist_quantiles": np.quantile(
+                         d, [0.0, 0.5, 0.9, 1.0]).tolist(),
+                     "min_margin_to_delta": float(np.min(
+                         np.abs(d - pcfg.delta)))}
+        assert got.cumulative_loss.shape == (T_ROUNDS,)
+        assert np.all(np.isfinite(got.cumulative_loss)), name
+        assert np.array_equal(got.sync_rounds, want.sync_rounds), name
+        assert got.num_syncs == want.num_syncs, name
+        assert np.array_equal(got.cumulative_bytes, want.cumulative_bytes), name
+        np.testing.assert_allclose(got.cumulative_loss, want.cumulative_loss,
+                                   rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   err_msg=name)
+        if len(got.eps_history):
+            np.testing.assert_allclose(got.eps_history, want.eps_history,
+                                       rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                       err_msg=name)
+        for field in ("cumulative_loss", "cumulative_errors",
+                      "cumulative_bytes", "sync_rounds", "eps_history",
+                      "divergences"):
+            assert np.array_equal(getattr(got, field), getattr(again, field)), \
+                f"{name}: repeated run differs in {field}"
+        emit({"phase": "e2e", "run": name, "m": m, "T": T_ROUNDS,
+              "kernel_launches": counts,
+              "rounds_per_s": T_ROUNDS / secs,
+              "reference_rounds_per_s": T_ROUNDS / ref_secs,
+              "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
+              "total_loss": got.total_loss,
+              "reference_total_loss": want.total_loss,
+              "error_rate": float(got.cumulative_errors[-1]) / (T_ROUNDS * m),
+              "max_memory_allocated": peak,
+              # device busy share: kernel time of the (profiled) repeat
+              # over the wall time of the unprofiled kernel run
+              "device_s": device_s, "device_busy_share": device_s / secs,
+              "top_kernels_s": dict(by_kernel.most_common(5)), **check})
+
+
+# ---------------------------------------------------------------------------
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build, fused, ops, ref
+    from repro_torch.kernels import quadform as qf
+
+    dev = device_mod.resolve("cuda")
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_build.log").write_text(
+        _build.BUILD_INFO.get("log", "(cached build)"))
+    emit({"phase": "env", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "precision": device_mod.precision_flags(),
+          "build_s": build_s, "build_cached": _build.BUILD_INFO["cached"]})
+
+    gen = torch.Generator().manual_seed(0)
+    results = {}
+    for name, fn in (
+            ("sv_predict", lambda: check_sv_predict(fused, ref, dev, gen)),
+            ("quadform", lambda: check_quadform(qf, ref, dev, gen)),
+            ("primal_step_rff",
+             lambda: check_primal_step(fused, ref, dev, gen, True)),
+            ("primal_step_linear",
+             lambda: check_primal_step(fused, ref, dev, gen, False))):
+        errs, ms, plain, (bms, by) = fn()
+        results[name] = dict(errs=errs, ms=ms["ms"], plain_ms=plain["ms"],
+                             bound_ms=bms, bound_by=by,
+                             device_ms=ms["device_ms"],
+                             plain_device_ms=plain["device_ms"])
+        emit({"phase": "kernel", "name": name, "max_abs_err": errs,
+              **{k: v for k, v in results[name].items() if k != "errs"}})
+    torch.cuda.synchronize()
+
+    # the engine runs with deterministic algorithms (after the kernel
+    # timings: in this mode torch.empty fills its output, an extra kernel)
+    torch.use_deterministic_algorithms(True)
+    totals: dict = {}
+    run_e2e(ops, totals)
+
+    meta = {
+        "sv_predict": ("src/repro_torch/kernels/csrc/sv_predict.cu",
+                       "src/repro/kernels/fused.py:100", ("sv_predict",)),
+        "quadform": ("src/repro_torch/kernels/csrc/quadform.cu",
+                     "src/repro/kernels/quadform.py:83", ("quadform",)),
+        "primal_step_rff": ("src/repro_torch/kernels/csrc/primal_step.cu",
+                            "src/repro/kernels/fused.py:237", ("rff_step",)),
+        "primal_step_linear": ("src/repro_torch/kernels/csrc/primal_step.cu",
+                               "src/repro/kernels/fused.py:237",
+                               ("linear_step",)),
+    }
+    kernels = []
+    for name, (source, replaces, counters) in meta.items():
+        r = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(totals.get(c, 0) for c in counters),
+            "max_abs_err": max(r["errs"].values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            # no single PyTorch call computes any of these functions
+            "library_ms": None, "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"]})
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,464 @@
+"""Learner substrates: the protocol-facing model interface (port of
+``repro/core/substrate.py``, its scan face).
+
+A substrate packages what the protocols do with a model: the local
+round, the Prop. 2 average, the distance to the reference model, and
+the Sec. 3 bytes a synchronization costs.  The engine (core/engine.py)
+has one code path for every representation:
+
+- :class:`SVSubstrate`     — budgeted support-vector expansion, with
+  the device ledger's delta-encoded id accounting.
+- :class:`RFFSubstrate`    — primal weights over D random Fourier
+  features: a fixed ``2 m (D+1) B`` bytes per sync.
+- :class:`LinearSubstrate` — the paper's Euclidean baselines.
+
+State is stacked over the learner axis m; where the reference vmaps a
+per-learner function the port writes the batch axis out.
+
+Backends: ``"reference"`` evaluates the plain expressions of
+core/rkhs.py and core/rff.py; ``"kernels"`` (the counterpart of the
+reference's ``"pallas"``) routes predict, the fused round and the
+dynamic distance through ``kernels.ops``.  The dispatch is
+engage-aware (``ops.engages``): below the 128 threshold the kernels
+backend runs the reference expressions verbatim, the same shape rule
+as the JAX package.
+
+Not ported yet (ROADMAP.md): the node face (runtime), the masked
+faces (population) and ``predict_batch`` (serving).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from . import accounting, compression, learners, rff, rkhs
+from .learners import KernelLearnerState, LearnerConfig, LinearLearnerState
+from .rff import RFFLearnerState, RFFSpec
+from .rkhs import SVModel
+
+_BACKENDS = ("reference", "kernels")
+
+
+def _kops():
+    """Lazy import of the kernel face (kernels.ops)."""
+    from ..kernels import ops
+    return ops
+
+
+class Substrate:
+    """Protocol-facing model representation (see module docstring).
+
+    - ``loss``: the surrogate loss ("hinge" | "squared").
+    - ``input_dim``: the stream's feature dimension d.
+    - ``has_eps``: syncs produce a compression-error series.
+    - ``free_divergence``: the divergence is cheap, recorded every round.
+    - ``guarded_dist_check``: the dynamic distance is computed only on
+      check rounds (the engine decides those on the host anyway).
+    """
+
+    loss: str = "hinge"
+    has_eps: bool = False
+    free_divergence: bool = True
+    guarded_dist_check: bool = False
+
+    def on(self, device: torch.device) -> "Substrate":
+        """This substrate with its constant tensors on ``device``."""
+        return self
+
+    def init(self, m: int, device):
+        raise NotImplementedError
+
+    def models_of(self, state):
+        return state
+
+    def with_models(self, state, models):
+        return models
+
+    def predict(self, models, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def update(self, state, example):
+        raise NotImplementedError
+
+    def round_stacked(self, state, example):
+        """One stacked round -> (new_state, losses, yhat_pre_update)."""
+        yhat = self.predict(self.models_of(state), example[0])
+        new_state, losses = self.update(state, example)
+        return new_state, losses, yhat
+
+    def average_stacked(self, models):
+        """(f_sync, eps): the Prop. 2 average prepared for redistribution."""
+        raise NotImplementedError
+
+    def adopt(self, models, fsync):
+        raise NotImplementedError
+
+    def dist_to_ref(self, models, ref) -> torch.Tensor:
+        raise NotImplementedError
+
+    def divergence(self, models) -> torch.Tensor:
+        raise NotImplementedError
+
+    def ledger_init(self, m: int, device):
+        return ()
+
+    def sync_payload(self, models, ledger):
+        """Sec. 3 bytes of one synchronization -> (int64 bytes, ledger)."""
+        raise NotImplementedError
+
+    def allreduce_sync_bytes(self, m: int) -> int:
+        """Total ring bytes of one synchronization under
+        ``topology="allreduce"`` (a host constant)."""
+        raise NotImplementedError
+
+    def validate(self, T: int, m: int, d: int) -> None:
+        if d != self.input_dim:
+            raise ValueError(
+                f"stream dim {d} != substrate dim {self.input_dim}")
+
+
+# ---------------------------------------------------------------------------
+# SV substrate (dual RKHS expansion)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SVSubstrate(Substrate):
+    """Budgeted support-vector expansion + device-ledger accounting."""
+
+    lcfg: LearnerConfig = dataclasses.field(default_factory=LearnerConfig)
+    sync_budget: int = 0          # 0 -> lcfg.budget
+    compress_method: str = compression.DEFAULT_METHOD
+    backend: str = "reference"
+
+    has_eps = True
+    free_divergence = False
+    guarded_dist_check = True
+
+    def __post_init__(self):
+        if not self.lcfg.is_kernel:
+            raise ValueError("SVSubstrate needs a kernel LearnerConfig")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.sync_budget == 0:
+            object.__setattr__(self, "sync_budget", int(self.lcfg.budget))
+
+    @property
+    def loss(self) -> str:
+        return self.lcfg.loss
+
+    @property
+    def input_dim(self) -> int:
+        return self.lcfg.dim
+
+    def validate(self, T: int, m: int, d: int) -> None:
+        super().validate(T, m, d)
+        learners.check_id_capacity(T)
+
+    def init(self, m: int, device) -> KernelLearnerState:
+        ids = torch.arange(m, dtype=torch.int32, device=device)
+        return learners.init_kernel_state(self.lcfg, ids, device=device)
+
+    def models_of(self, state):
+        return state.model
+
+    def with_models(self, state, models):
+        return state._replace(model=models)
+
+    def _engaged(self) -> bool:
+        """Kernels backend AND the budget reaches the launch threshold."""
+        return self.backend == "kernels" and _kops().engages(self.lcfg.budget)
+
+    def predict(self, models: SVModel, x: torch.Tensor) -> torch.Tensor:
+        if self._engaged():
+            a = rkhs.masked_alpha(models)
+            return _kops().sv_predict_spec(self.lcfg.kernel, x, models.sv, a)
+        return rkhs.predict(self.lcfg.kernel, models, x[:, None, :])[:, 0]
+
+    def update(self, state, example):
+        return learners.kernel_update(self.lcfg, state, example)
+
+    def round_stacked(self, state, example):
+        # one prediction feeds both the loss record and the update
+        x, y = example
+        yhat = self.predict(state.model, x)
+        new_state, losses = learners.kernel_update_from_yhat(
+            self.lcfg, state, (x, y), yhat)
+        return new_state, losses, yhat
+
+    def average_stacked(self, models: SVModel):
+        fbar = rkhs.average_stacked(models)           # budget m * tau
+        return compression.compress(self.lcfg.kernel, fbar,
+                                    self.sync_budget, self.compress_method)
+
+    def adopt(self, models: SVModel, fsync: SVModel) -> SVModel:
+        one = rkhs.pad_to_budget(fsync, self.lcfg.budget)
+        m = models.sv.shape[0]
+        return SVModel(sv=one.sv.expand((m,) + tuple(one.sv.shape)).clone(),
+                       alpha=one.alpha.expand(m, -1).clone(),
+                       sv_id=one.sv_id.expand(m, -1).clone())
+
+    def dist_to_ref(self, models: SVModel, ref: SVModel) -> torch.Tensor:
+        # engage-gated like every kernel branch: the dynamic protocol's
+        # sync decisions feed the byte ledger
+        if self.backend == "kernels" and _kops().engages(
+                self.lcfg.budget, self.sync_budget):
+            return self._dist_kernels(models, ref)
+        return rkhs.stacked_dist_to(self.lcfg.kernel, models, ref)
+
+    def _dist_kernels(self, models: SVModel, ref: SVModel) -> torch.Tensor:
+        return _kops().rkhs_dist_sq_spec(
+            self.lcfg.kernel, models.sv, ref.sv, rkhs.masked_alpha(models),
+            rkhs.masked_alpha(ref))
+
+    def divergence(self, models: SVModel) -> torch.Tensor:
+        if self._engaged():
+            fbar = rkhs.average_stacked(models)
+            return torch.mean(self.dist_to_ref(models, fbar))
+        return rkhs.divergence_stacked(self.lcfg.kernel, models)
+
+    def ledger_init(self, m: int, device):
+        return accounting.device_ledger_init(m * self.lcfg.budget, device)
+
+    def sync_payload(self, models: SVModel, ledger):
+        bm = accounting.ByteModel(dim=self.lcfg.dim)
+        return accounting.device_sync_bytes_kernel(bm, models.sv_id, ledger)
+
+    def allreduce_sync_bytes(self, m: int) -> int:
+        # a ring all-gather of the m budget-tau stacks; each slot ships
+        # its vector + id (B_x) and its coefficient
+        bm = accounting.ByteModel(dim=self.lcfg.dim)
+        slot = bm.B_x + bm.dtype_bytes
+        return accounting.allgather_bytes(self.lcfg.budget * slot, m)
+
+
+# ---------------------------------------------------------------------------
+# Primal substrates share the (w, b) average, distance and accounting
+# ---------------------------------------------------------------------------
+
+
+class _PrimalSubstrate(Substrate):
+    """Fixed-size (w, b) models: plain mean, Euclidean distance, and a
+    fixed ``2 m (num_params) B`` bytes per sync."""
+
+    has_eps = False
+    free_divergence = True
+    guarded_dist_check = False
+
+    @property
+    def num_params(self) -> int:
+        raise NotImplementedError
+
+    def _state_cls(self):
+        raise NotImplementedError
+
+    def average_stacked(self, models):
+        cls = self._state_cls()
+        mean = cls(w=torch.mean(models.w, dim=0), b=torch.mean(models.b))
+        return mean, torch.zeros((), dtype=torch.float32,
+                                 device=models.w.device)
+
+    def adopt(self, models, fsync):
+        cls = self._state_cls()
+        return cls(w=fsync.w.expand_as(models.w).clone(),
+                   b=fsync.b.expand_as(models.b).clone())
+
+    def dist_to_ref(self, models, ref) -> torch.Tensor:
+        return torch.sum((models.w - ref.w) ** 2, dim=-1) + (models.b - ref.b) ** 2
+
+    def divergence(self, models) -> torch.Tensor:
+        wbar = torch.mean(models.w, dim=0)
+        bbar = torch.mean(models.b)
+        return torch.mean(torch.sum((models.w - wbar[None, :]) ** 2, dim=-1)
+                          + (models.b - bbar) ** 2)
+
+    def sync_payload(self, models, ledger):
+        m = models.w.shape[0]
+        return accounting.sync_bytes_linear(self.num_params, m), ledger
+
+    def allreduce_sync_bytes(self, m: int) -> int:
+        return accounting.allreduce_bytes(self.num_params, m)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSubstrate(_PrimalSubstrate):
+    """Euclidean weight vectors with fixed-size sync payloads."""
+
+    lcfg: LearnerConfig = dataclasses.field(
+        default_factory=lambda: LearnerConfig(algo="linear_sgd"))
+    backend: str = "reference"
+
+    def __post_init__(self):
+        if self.lcfg.is_kernel:
+            raise ValueError("LinearSubstrate needs a linear LearnerConfig")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+    @property
+    def loss(self) -> str:
+        return self.lcfg.loss
+
+    @property
+    def input_dim(self) -> int:
+        return self.lcfg.dim
+
+    @property
+    def num_params(self) -> int:
+        return self.lcfg.dim + 1
+
+    def _state_cls(self):
+        return LinearLearnerState
+
+    def init(self, m: int, device) -> LinearLearnerState:
+        return learners.init_linear_state(self.lcfg, lead=(m,), device=device)
+
+    def predict(self, models, x: torch.Tensor) -> torch.Tensor:
+        return torch.sum(models.w * x, dim=-1) + models.b
+
+    def update(self, state, example):
+        return learners.linear_update(self.lcfg, state, example)
+
+    def round_stacked(self, state, example):
+        # linear_sgd's round is the fused primal step with z = x
+        x, y = example
+        if (self.backend == "kernels" and self.lcfg.algo == "linear_sgd"
+                and _kops().engages(x.shape[0], self.lcfg.dim)):
+            w_new, b_new, ell, yhat = _kops().fused_primal_step(
+                x, y, state.w, state.b, loss=self.loss,
+                eta=self.lcfg.eta, lam=self.lcfg.lam)
+            return LinearLearnerState(w=w_new, b=b_new), ell, yhat
+        yhat = self.predict(state, x)
+        new_state, ell = self.update(state, example)
+        return new_state, ell, yhat
+
+
+@dataclasses.dataclass(frozen=True)
+class RFFSubstrate(_PrimalSubstrate):
+    """Primal SGD over D random Fourier features.  ``spec`` carries
+    (W, b); ``on(device)`` puts them on the device once per run."""
+
+    spec: RFFSpec = dataclasses.field(
+        default_factory=lambda: RFFSpec(dim=8, num_features=256))
+    eta: float = 0.5
+    lam: float = 0.01
+    loss: str = "hinge"
+    backend: str = "reference"
+
+    def __post_init__(self):
+        if self.loss not in ("hinge", "squared"):
+            raise ValueError(f"unknown loss {self.loss!r}")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+    @property
+    def input_dim(self) -> int:
+        return self.spec.dim
+
+    @property
+    def num_params(self) -> int:
+        return self.spec.num_features + 1
+
+    def _state_cls(self):
+        return RFFLearnerState
+
+    def on(self, device: torch.device) -> "RFFSubstrate":
+        return dataclasses.replace(self, spec=self.spec.to(device))
+
+    def _params(self, device):
+        W, b = rff.rff_params(self.spec)
+        return W.to(device), b.to(device)
+
+    def _phi(self, X2d: torch.Tensor) -> torch.Tensor:
+        """phi over a batch of rows: (n, d) -> (n, D).  The plain map on
+        every backend: the reference's ``rff`` kernel serves this call
+        and is not ported yet (ROADMAP.md); the engine's round does not
+        come here under ``"kernels"`` (``fused_primal_step`` featurizes
+        in-kernel)."""
+        W, b = self._params(X2d.device)
+        return rff.featurize(self.spec, W, b, X2d)
+
+    def init(self, m: int, device) -> RFFLearnerState:
+        return rff.init_state(self.spec, lead=(m,), device=device)
+
+    def predict(self, models, x: torch.Tensor) -> torch.Tensor:
+        Z = self._phi(x)                               # (m, D)
+        return torch.sum(models.w * Z, dim=-1) + models.b
+
+    def _round_with_features(self, st, Z, y):
+        yhat = torch.sum(st.w * Z, dim=-1) + st.b
+        ell, g = learners.loss_and_grad(self.loss, yhat, y)
+        w = (1.0 - self.eta * self.lam) * st.w - self.eta * g[:, None] * Z
+        b = st.b - self.eta * g
+        return RFFLearnerState(w=w, b=b), ell, yhat
+
+    def update(self, state, example):
+        x, y = example
+        new_state, ell, _ = self._round_with_features(state, self._phi(x), y)
+        return new_state, ell
+
+    def round_stacked(self, state, example):
+        x, y = example
+        if self.backend == "kernels" and _kops().engages(
+                x.shape[0], self.spec.num_features):
+            W, b = self._params(x.device)
+            w_new, b_new, ell, yhat = _kops().fused_primal_step(
+                x, y, state.w, state.b, W=W, bias=b,
+                scale=math.sqrt(2.0 / self.spec.num_features),
+                loss=self.loss, eta=self.eta, lam=self.lam)
+            return RFFLearnerState(w=w_new, b=b_new), ell, yhat
+        # one shared featurize, the exact predict and update expressions
+        return self._round_with_features(state, self._phi(x), y)
+
+
+# ---------------------------------------------------------------------------
+# Construction
+# ---------------------------------------------------------------------------
+
+
+def substrate_of(learner, *, sync_budget: Optional[int] = None,
+                 compress_method: Optional[str] = None,
+                 backend: Optional[str] = None) -> Substrate:
+    """Resolve a Substrate, LearnerConfig or RFFSpec to a Substrate, with
+    the reference's ``None``-sentinel semantics: an explicitly passed
+    keyword overrides, ``None`` keeps the substrate's own value (for a
+    config: "truncate", "reference", and the learner budget)."""
+    overrides = {}
+    if sync_budget is not None:
+        overrides["sync_budget"] = int(sync_budget)
+    if compress_method is not None:
+        overrides["compress_method"] = compress_method
+    if backend is not None:
+        overrides["backend"] = backend
+
+    if isinstance(learner, Substrate):
+        if not overrides:
+            return learner
+        sub = learner
+    elif isinstance(learner, LearnerConfig):
+        if learner.is_kernel:
+            return SVSubstrate(
+                lcfg=learner,
+                sync_budget=int(sync_budget or learner.budget),
+                compress_method=compress_method or compression.DEFAULT_METHOD,
+                backend=backend or "reference")
+        # linear models have no sync budget / compression: ignored
+        return LinearSubstrate(lcfg=learner, backend=backend or "reference")
+    elif isinstance(learner, RFFSpec):
+        sub = RFFSubstrate(spec=learner)
+        if not overrides:
+            return sub
+    else:
+        raise TypeError(
+            f"cannot build a substrate from {type(learner).__name__}; pass a "
+            "Substrate, LearnerConfig, or RFFSpec")
+
+    fields = {f.name for f in dataclasses.fields(sub)}
+    unknown = sorted(set(overrides) - fields)
+    if unknown:
+        raise ValueError(
+            f"{unknown} cannot be applied to {type(sub).__name__}; "
+            "configure the substrate directly")
+    return dataclasses.replace(sub, **overrides)

@@ -1,0 +1,122 @@
+"""The kernel face the substrates call (port of ``repro/kernels/ops.py``).
+
+- ``engages``: the one launch threshold every op shares — a call takes
+  the kernel branch when any blocked extent reaches 128, the
+  reference's ``_MIN_PALLAS`` (``repro/kernels/ops.py:50``), with the
+  same operands at every call site.  Below it the ops return the plain
+  expressions, exactly as the JAX package does: a shape rule that
+  keeps small-model ``backend="kernels"`` runs identical to
+  ``backend="reference"`` and the byte ledger backend-independent.
+- ``LAUNCH_COUNTS``: launches per kernel name; a wrapper adds one only
+  where its CUDA kernel runs (never on the CPU plain path).
+- Block sizes are fixed constants in the CUDA sources; no autotuner.
+
+``spec`` arguments are duck-typed against ``core.rkhs.KernelSpec``
+(kind / gamma / degree / coef0).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import fused, quadform as quadform_mod, ref
+from ._build import LAUNCH_COUNTS
+
+_MIN_KERNEL = 128    # below this, use the plain expressions
+
+__all__ = ["LAUNCH_COUNTS", "engages", "reset_launch_counts", "sv_predict",
+           "quadform", "rkhs_dist_sq", "fused_primal_step",
+           "sv_predict_spec", "quadform_spec", "rkhs_dist_sq_spec"]
+
+
+def engages(*dims) -> bool:
+    """True when these operand extents take the kernel branch."""
+    return max(int(d) for d in dims) >= _MIN_KERNEL
+
+
+def reset_launch_counts() -> None:
+    LAUNCH_COUNTS.clear()
+
+
+def _kw(spec) -> dict:
+    return dict(kind=spec.kind, gamma=spec.gamma, degree=spec.degree,
+                coef0=spec.coef0)
+
+
+def sv_predict(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
+               coef0=1.0, force_kernel=False):
+    """Fused batched SV predictions: X (B, d), SV (B, N, d), A (B, N) ->
+    (B,).  Engagement depends on the budget N only, never on B."""
+    N = SV.shape[1]
+    if not force_kernel and not engages(N):
+        return ref.sv_predict_ref(X, SV, A, kind=kind, gamma=gamma,
+                                  degree=degree, coef0=coef0)
+    return fused.sv_predict(X.contiguous(), SV.contiguous(), A.contiguous(),
+                            kind=kind, gamma=gamma, degree=degree,
+                            coef0=coef0)
+
+
+def quadform(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0, degree=3,
+             coef0=1.0, force_kernel=False):
+    """P forms alpha_p^T K(X_p, Y_p) beta_p: (P, M, d), (P, N, d),
+    (P, M), (P, N) -> (P,), without materializing K on the kernel path."""
+    if not force_kernel and not engages(X.shape[1], Y.shape[1]):
+        return ref.quadform_ref(X, Y, alpha, beta, kind=kind, gamma=gamma,
+                                degree=degree, coef0=coef0)
+    return quadform_mod.quadform(
+        X.contiguous(), Y.contiguous(), alpha.contiguous(),
+        beta.contiguous(), kind=kind, gamma=gamma, degree=degree,
+        coef0=coef0)
+
+
+def rkhs_dist_sq(F, G, af, ag, *, kind="gaussian", gamma=1.0, degree=3,
+                 coef0=1.0):
+    """||f_i - g||_H^2 for m stacked models F (m, M, d) with masked
+    coefficients af (m, M) against one model G (N, d), ag (N,): three
+    quadratic forms per learner, <f,f> + <g,g> - 2<f,g>, as the
+    reference's vmapped ``ops.rkhs_dist_sq``.  When all three engage
+    with one shape (budget == sync budget) they run as ONE launch of
+    P = 3m forms; otherwise each group engages on its own operands."""
+    kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    m, M, d = F.shape
+    N = G.shape[0]
+    Gm = G.expand(m, N, d)
+    agm = ag.expand(m, N)
+    groups = [(F, F, af, af), (Gm, Gm, agm, agm), (F, Gm, af, agm)]
+    if M == N and engages(M):
+        X, Y, a, b = (torch.cat([g[i] for g in groups]) for i in range(4))
+        q = quadform(X, Y, a, b, **kw)
+        qff, qgg, qfg = q[:m], q[m:2 * m], q[2 * m:]
+    else:
+        qff, qgg, qfg = (quadform(*g, **kw) for g in groups)
+    return qff + qgg - 2.0 * qfg
+
+
+def fused_primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
+                      loss="hinge", eta=0.5, lam=0.01, force_kernel=False):
+    """One fused online round for B stacked primal learners ->
+    (w_new, b_new, ell, yhat); with ``W``/``bias`` the RFF map runs
+    inside the kernel, otherwise z = x (the linear family)."""
+    B, D = X.shape[0], w.shape[1]
+    if not force_kernel and not engages(B, D):
+        return ref.primal_step_ref(X, Yl, w, b, W=W, bias=bias, scale=scale,
+                                   loss=loss, eta=eta, lam=lam)
+    c = lambda t: None if t is None else t.contiguous()    # noqa: E731
+    return fused.primal_step(c(X), c(Yl), c(w), c(b), W=c(W), bias=c(bias),
+                             scale=scale, loss=loss, eta=eta, lam=lam)
+
+
+# ---------------------------------------------------------------------------
+# KernelSpec-driven entry points (the substrates' kernels backend)
+# ---------------------------------------------------------------------------
+
+
+def sv_predict_spec(spec, X, SV, A, **kw):
+    return sv_predict(X, SV, A, **_kw(spec), **kw)
+
+
+def quadform_spec(spec, X, Y, alpha, beta, **kw):
+    return quadform(X, Y, alpha, beta, **_kw(spec), **kw)
+
+
+def rkhs_dist_sq_spec(spec, F, G, af, ag):
+    return rkhs_dist_sq(F, G, af, ag, **_kw(spec))

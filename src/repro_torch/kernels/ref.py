@@ -1,0 +1,69 @@
+"""Plain PyTorch versions of the hand-written kernels (port of
+``repro/kernels/ref.py``).
+
+They define what each CUDA kernel must compute.  A kernel wrapper runs
+its plain version when its tensors lie on the CPU (the CPU tests), and
+``chip_smoke.py`` holds every kernel against its plain version on the
+card.  Same formulas as the reference's oracles: matmul cross terms,
+and per-row multiply + sum for the SV predictions.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.rkhs import KernelSpec, gram
+
+
+def _spec(kind, gamma, degree, coef0) -> KernelSpec:
+    return KernelSpec(kind=kind, gamma=float(gamma), degree=int(degree),
+                      coef0=float(coef0))
+
+
+def gram_ref(X, Y, *, kind="gaussian", gamma=1.0, degree=3, coef0=1.0):
+    """K(X, Y) with the matmul cross term: (..., M, d), (..., N, d)."""
+    return gram(_spec(kind, gamma, degree, coef0), X, Y)
+
+
+def sv_predict_ref(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
+                   coef0=1.0):
+    """yhat_i = sum_j k(X_i, SV_ij) A_ij: X (B, d), SV (B, N, d),
+    A (B, N) -> (B,).  Padded slots must carry A = 0."""
+    k = gram_ref(X[:, None, :], SV, kind=kind, gamma=gamma, degree=degree,
+                 coef0=coef0)[:, 0, :]                       # (B, N)
+    return torch.sum(k * A.float(), dim=-1)
+
+
+def quadform_ref(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0,
+                 degree=3, coef0=1.0):
+    """P independent forms alpha_p^T K(X_p, Y_p) beta_p: X (P, M, d),
+    Y (P, N, d), alpha (P, M), beta (P, N) -> (P,)."""
+    K = gram_ref(X, Y, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    return (alpha.float()[:, None, :] @ K @ beta.float()[:, :, None])[:, 0, 0]
+
+
+def _loss_grad_ref(loss, yhat, y):
+    if loss == "hinge":
+        ell = torch.clamp(1.0 - y * yhat, min=0.0)
+        return ell, torch.where(ell > 0.0, -y, torch.zeros_like(y))
+    r = yhat - y
+    return 0.5 * r * r, r
+
+
+def primal_step_ref(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
+                    loss="hinge", eta=0.5, lam=0.01):
+    """One online round for B stacked primal learners -> (w_new, b_new,
+    ell, yhat); with ``W``/``bias`` the RFF map z = scale cos(X W^T +
+    bias), else z = X (linear)."""
+    X = X.float()
+    Yl = Yl.float()
+    w = w.float()
+    b = b.float()
+    if W is not None:
+        z = scale * torch.cos(X @ W.float().T + bias.float()[None, :])
+    else:
+        z = X
+    yhat = torch.sum(w * z, dim=-1) + b
+    ell, g = _loss_grad_ref(loss, yhat, Yl)
+    w_new = (1.0 - eta * lam) * w - eta * g[:, None] * z
+    b_new = b - eta * g
+    return w_new, b_new, ell, yhat

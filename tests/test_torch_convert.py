@@ -1,0 +1,110 @@
+"""``repro_torch.convert``: a reference state carried across to the port
+gives the same next round.
+
+The reference substrate runs k stacked rounds (and one sync) on the
+JAX side; its state, its synchronized model and, for RFF, its
+``(W, b)`` draw are converted, and one more round on each side must
+agree: ids and counters equal, floats within the suite's parity
+tolerance.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import rff as jrff
+from repro.core import substrate as jsub
+from repro.core.learners import LearnerConfig as JLearner
+from repro.core.rff import RFFSpec as JRFFSpec
+from repro.core.rkhs import KernelSpec as JKernel
+from repro.data.streams import susy_stream
+
+from repro_torch import convert
+from repro_torch.core import substrate as tsub
+from repro_torch.core.learners import LearnerConfig as TLearner
+from repro_torch.core.rkhs import KernelSpec as TKernel
+
+D_IN, M, K = 6, 3, 9
+
+
+def _pair(family, backend):
+    jb = "pallas" if backend == "kernels" else backend
+    if family == "sv":
+        kw = dict(algo="kernel_sgd", budget=5, dim=D_IN)
+        return (jsub.SVSubstrate(lcfg=JLearner(kernel=JKernel(gamma=0.4), **kw),
+                                 backend=jb),
+                tsub.SVSubstrate(lcfg=TLearner(kernel=TKernel(gamma=0.4), **kw),
+                                 backend=backend), convert.kernel_learner_state)
+    if family == "rff":
+        js = JRFFSpec(dim=D_IN, num_features=24, gamma=0.4, seed=3)
+        W, b = jrff.rff_params(js)
+        return (jsub.RFFSubstrate(spec=js, backend=jb),
+                tsub.RFFSubstrate(spec=convert.rff_spec(js, W, b),
+                                  backend=backend), convert.rff_state)
+    kw = dict(algo="linear_sgd", dim=D_IN)
+    return (jsub.LinearSubstrate(lcfg=JLearner(**kw), backend=jb),
+            tsub.LinearSubstrate(lcfg=TLearner(**kw), backend=backend),
+            convert.linear_state)
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernels"])
+@pytest.mark.parametrize("family", ["sv", "rff", "linear"])
+def test_state_carried_across_gives_the_same_next_round(family, backend,
+                                                        backend_parity):
+    jsb, tsb, to_port = _pair(family, backend)
+    X, Y = susy_stream(K + 1, M, d=D_IN, seed=11)
+    jstate = jsb.init(M)
+    for t in range(K):
+        jstate, _, _ = jsb.round_stacked(jstate, (jnp.asarray(X[t]),
+                                                  jnp.asarray(Y[t])))
+        if t == K // 2:          # one sync on the way
+            fsync, _ = jsb.average_stacked(jsb.models_of(jstate))
+            jstate = jsb.with_models(
+                jstate, jsb.adopt(jsb.models_of(jstate), fsync))
+    tstate = to_port(jstate, device="cpu")
+    for got, want in zip(jax.tree.leaves(convert.to_numpy(tstate)),
+                         jax.tree.leaves(jstate)):
+        assert got.dtype == np.asarray(want).dtype
+        np.testing.assert_array_equal(got, want)
+
+    x, y = X[K], Y[K]
+    jnext, jloss, jyhat = jsb.round_stacked(jstate, (jnp.asarray(x),
+                                                     jnp.asarray(y)))
+    tnext, tloss, tyhat = tsb.on(torch.device("cpu")).round_stacked(
+        tstate, (torch.from_numpy(x), torch.from_numpy(y)))
+    backend_parity(tloss.numpy(), jloss, "loss")
+    backend_parity(tyhat.numpy(), jyhat, "yhat")
+    for got, want in zip(jax.tree.leaves(convert.to_numpy(tnext)),
+                         jax.tree.leaves(jnext)):
+        if np.issubdtype(got.dtype, np.integer):
+            np.testing.assert_array_equal(got, want)
+        else:
+            backend_parity(got, want, "state")
+
+    # the reference's synchronized model, carried across, is the same
+    # distance away from every learner
+    jref, _ = jsb.average_stacked(jsb.models_of(jnext))
+    if family == "sv":
+        tref = convert.sv_model(jref, device="cpu")
+    else:
+        tref = to_port(jref, device="cpu")
+    backend_parity(
+        tsb.dist_to_ref(tsb.models_of(tnext), tref).numpy(),
+        jsb.dist_to_ref(jsb.models_of(jnext), jref), "dist_to_ref")
+
+
+def test_rff_spec_carries_the_reference_draw():
+    js = JRFFSpec(dim=4, num_features=16, gamma=0.7, seed=5)
+    W, b = jrff.rff_params(js)
+    ts = convert.rff_spec(js, W, b)
+    from repro_torch.core import rff as trff
+    tW, tb = trff.rff_params(ts)
+    np.testing.assert_array_equal(tW.numpy(), np.asarray(W))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(b))
+    assert (ts.dim, ts.num_features, ts.gamma, ts.seed) == (4, 16, 0.7, 5)
+    X = np.random.default_rng(0).normal(size=(7, 4)).astype(np.float32)
+    np.testing.assert_allclose(
+        trff.featurize(ts, tW, tb, torch.from_numpy(X)).numpy(),
+        np.asarray(jrff.featurize(js, W, b, jnp.asarray(X))),
+        rtol=0, atol=1e-6)

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels on the card (``cuda`` marker).
+
+Each test skips where ``torch.cuda.is_available()`` is false: the
+kernels have no CPU mode, and on the CPU the wrappers take the plain
+versions (tests/test_torch_kernels.py holds those against the JAX
+reference).  This file imports no JAX, so it also runs on a machine
+that has only PyTorch; there, run it without the suite's conftest
+(which imports JAX):
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The tolerance is the suite's one parity pair, restated from
+tests/conftest.py:42-43 because this file may run without it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.learners import LearnerConfig
+from repro_torch.core.protocol import ProtocolConfig
+from repro_torch.core.rff import RFFSpec
+from repro_torch.core.rkhs import KernelSpec
+from repro_torch.data.streams import susy_stream
+from repro_torch.kernels import fused, ops, quadform, ref
+
+PARITY_RTOL = 1e-3     # tests/conftest.py:42
+PARITY_ATOL = 5e-3     # tests/conftest.py:43
+KINDS = ["gaussian", "linear", "poly"]
+EDGES = [1, 127, 128, 129, 130]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, label):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                               err_msg=label)
+
+
+def _randn(gen, *shape, dev):
+    return torch.randn(*shape, generator=gen).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_sv_predict_and_quadform_match_plain(kind, cuda):
+    gen = torch.Generator().manual_seed(0)
+    ops.reset_launch_counts()
+    for N in EDGES:
+        X, SV = _randn(gen, 3, 18, dev=cuda), _randn(gen, 3, N, 18, dev=cuda)
+        A = _randn(gen, 3, N, dev=cuda)
+        for a in (A, torch.zeros_like(A)):
+            _close(fused.sv_predict(X, SV, a, kind=kind, gamma=0.05),
+                   ref.sv_predict_ref(X, SV, a, kind=kind, gamma=0.05),
+                   f"sv_predict {kind} N={N}")
+        Xq, Yq = _randn(gen, 2, N, 18, dev=cuda), _randn(gen, 2, 130, 18, dev=cuda)
+        a, b = _randn(gen, 2, N, dev=cuda), _randn(gen, 2, 130, dev=cuda)
+        _close(quadform.quadform(Xq, Yq, a, b, kind=kind, gamma=0.05),
+               ref.quadform_ref(Xq, Yq, a, b, kind=kind, gamma=0.05),
+               f"quadform {kind} M={N}")
+    assert ops.LAUNCH_COUNTS["sv_predict"] == 2 * len(EDGES)
+    assert ops.LAUNCH_COUNTS["quadform"] == len(EDGES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("featurize", [False, True])
+@pytest.mark.parametrize("loss", ["hinge", "squared"])
+def test_primal_step_matches_plain(featurize, loss, cuda):
+    gen = torch.Generator().manual_seed(1)
+    for B in EDGES:
+        D = 129 if featurize else 18
+        args = (_randn(gen, B, 18, dev=cuda),
+                torch.sign(_randn(gen, B, dev=cuda)),
+                0.1 * _randn(gen, B, D, dev=cuda), _randn(gen, B, dev=cuda))
+        kw = {}
+        if featurize:
+            kw = dict(W=_randn(gen, D, 18, dev=cuda),
+                      bias=6.0 * torch.rand(D, generator=gen).to(cuda),
+                      scale=float(np.sqrt(2.0 / D)))
+        got = fused.primal_step(*args, loss=loss, **kw)
+        want = ref.primal_step_ref(*args, loss=loss, **kw)
+        for g, w, name in zip(got, want, ("w", "b", "ell", "yhat")):
+            _close(g, w, f"primal_step {name} B={B}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sv", "rff", "linear"])
+def test_engine_kernels_match_reference_and_repeat(family, cuda):
+    if family == "sv":
+        learner, m = LearnerConfig(budget=130, dim=18,
+                                   kernel=KernelSpec(gamma=0.05)), 3
+        pcfg = ProtocolConfig(kind="periodic", period=7)
+    elif family == "rff":
+        learner, m = RFFSpec(dim=18, num_features=256, gamma=0.05), 3
+        pcfg = ProtocolConfig(kind="periodic", period=7)
+    else:
+        learner, m = LearnerConfig(algo="linear_sgd", dim=18), 130
+        pcfg = ProtocolConfig(kind="periodic", period=7)
+    X, Y = susy_stream(40, m, d=18, seed=0)
+    ops.reset_launch_counts()
+    got = engine.run(learner, pcfg, X, Y, backend="kernels")
+    assert sum(ops.LAUNCH_COUNTS.values()) > 0
+    want = engine.run(learner, pcfg, X, Y, backend="reference")
+    again = engine.run(learner, pcfg, X, Y, backend="kernels")
+    np.testing.assert_array_equal(got.sync_rounds, want.sync_rounds)
+    np.testing.assert_array_equal(got.cumulative_bytes, want.cumulative_bytes)
+    np.testing.assert_allclose(got.cumulative_loss, want.cumulative_loss,
+                               rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    np.testing.assert_array_equal(got.cumulative_loss, again.cumulative_loss)

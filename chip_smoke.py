@@ -11,7 +11,9 @@ non-zero with no result line:
 2. one line per kernel: each hand-written kernel against its plain
    PyTorch version on the card, at the engine's shapes and at edge
    shapes (ragged budgets, budget 1, all-padded coefficients), under
-   the parity tolerance of tests/conftest.py:42-43; then its time
+   the parity tolerance of tests/conftest.py:42-43 (``rff``, whose
+   outputs are bounded by sqrt(2/D), to a thousandth of that bound,
+   with a bf16-projection control that must miss it); then its time
    (CUDA events, after warm-up) beside the plain version's time and
    the least time the card could take (``bound_ms``).
 3. end to end: ``engine.run`` at full width on ``susy_stream`` with
@@ -20,6 +22,16 @@ non-zero with no result line:
    linear periodic (m = 1024).  Each run must launch its kernels,
    agree with ``backend="reference"`` on the card (same sync rounds and
    bytes, losses within tolerance), and repeat bitwise.
+4. serving: ``serving.serve_stream`` on the same streams and learners
+   (RFF dynamic and SV dynamic under continuous batching with a
+   shedding queue, linear periodic on the tick grid), about 16,000
+   requests each.  Each run must launch its kernels, have the protocol
+   view of phase 3's ``engine.run`` bitwise, the serving face of a
+   ``backend="reference"`` serving run exactly and its predictions
+   within the parity pair, repeat bitwise, and answer every bucket
+   size's rows as ``predict_one`` does, bitwise, and as the plain
+   stacked ``predict`` does, within the parity pair.  Then the same
+   row checks below the kernels' threshold (SV budget 64, RFF D = 64).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -51,6 +63,9 @@ OUT_DIR = ROOT / "chiprun_out"
 # THE parity tolerance of the repository (tests/conftest.py:42-43).
 PARITY_RTOL = 1e-3
 PARITY_ATOL = 5e-3
+# rff's outputs are bounded by sqrt(2/D) (0.031 at D = 2048), far below
+# the parity pair's atol: it is held to a thousandth of that bound
+RFF_ATOL_OF_SCALE = 1e-3
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -108,13 +123,13 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
     return {"ms": ms, "device_ms": dev_us / 1e3 / iters}
 
 
-def close(got, want, label: str) -> float:
+def close(got, want, label: str, rtol: float = PARITY_RTOL,
+          atol: float = PARITY_ATOL) -> float:
     got = got.detach().cpu().numpy()
     want = want.detach().cpu().numpy()
     assert got.shape == want.shape, (label, got.shape, want.shape)
     assert np.all(np.isfinite(got)), f"{label}: non-finite kernel output"
-    np.testing.assert_allclose(got, want, rtol=PARITY_RTOL, atol=PARITY_ATOL,
-                               err_msg=label)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=label)
     return float(np.max(np.abs(got - want))) if got.size else 0.0
 
 
@@ -236,6 +251,57 @@ def check_primal_step(fused, ref, dev, gen, featurize: bool):
     return errs, ms, plain, bound_ms(nbytes, flops)
 
 
+def rff_atol(D: int) -> float:
+    return RFF_ATOL_OF_SCALE * float(np.sqrt(2.0 / D))
+
+
+def check_rff(rffmod, ref, dev, gen):
+    """``rff`` against ``rff_ref`` to a thousandth of the output bound,
+    row independence bitwise, and a control: the plain map with a bf16
+    projection must miss that limit (the check can see such a kernel)."""
+    cases = [(64, N_FEATURES, D_IN, 1.0), (32, N_FEATURES, D_IN, 1.0),
+             (1, N_FEATURES, D_IN, 1.0), (127, 129, 7, 1.0),
+             (128, 128, D_IN, 1.0), (129, 130, D_IN, 1.0),
+             (3, 130, D_IN, 1.0), (64, N_FEATURES, D_IN, 10.0)]
+    errs = {}
+    for M, D, d, scale in cases:
+        X = (scale * torch.randn(M, d, generator=gen)).to(dev)
+        W = (np.sqrt(2 * GAMMA) * torch.randn(D, d, generator=gen)).to(dev)
+        b = (2 * np.pi * torch.rand(D, generator=gen)).to(dev)
+        label = f"rff M={M} D={D} d={d} x{scale:g}"
+        Z = rffmod.rff(X, W, b)
+        want = ref.rff_ref(X, W, b)
+        errs[label] = close(Z, want, label, rtol=0.0, atol=rff_atol(D))
+        if (M, D, scale) == (64, N_FEATURES, 1.0):
+            proj = (X.bfloat16() @ W.bfloat16().T).float() + b
+            control = float(np.sqrt(2.0 / D)) * torch.cos(proj)
+            control_err = float(torch.max(torch.abs(control - want)))
+            assert control_err > rff_atol(D), \
+                f"the bf16 control passes the rff limit ({control_err})"
+        if M == 64:
+            # a row's floats do not depend on the rows around it
+            for i in range(M):
+                assert torch.equal(rffmod.rff(X[i:i + 1], W, b)[0], Z[i]), \
+                    f"{label}: row {i} differs from the one-row call"
+    M, D = 64, N_FEATURES
+    X = torch.randn(M, D_IN, generator=gen).to(dev)
+    W = (np.sqrt(2 * GAMMA) * torch.randn(D, D_IN, generator=gen)).to(dev)
+    b = (2 * np.pi * torch.rand(D, generator=gen)).to(dev)
+    ms = time_ms(lambda: rffmod.rff(X, W, b))
+    plain = time_ms(lambda: ref.rff_ref(X, W, b))
+    one = time_ms(lambda: rffmod.rff(X[:1], W, b))
+    nbytes = 4 * (M * D_IN + D * D_IN + D + M * D)
+    flops = 2 * M * D * D_IN
+    emit({"phase": "kernel_tolerance", "name": "rff",
+          "atol_at_D2048": rff_atol(N_FEATURES), "rtol": 0.0,
+          "max_abs_err_any_shape": max(errs.values()),
+          "bf16_projection_control_err": control_err})
+    errs = {"main": errs[f"rff M=64 D={N_FEATURES} d={D_IN} x1"],
+            "max_any_shape": max(errs.values())}
+    return errs, dict(ms, ms_m1=one["ms"], device_ms_m1=one["device_ms"]), \
+        plain, bound_ms(nbytes, flops)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: engine.run end to end
 # ---------------------------------------------------------------------------
@@ -281,7 +347,15 @@ def _recording(sub, dists: list):
                         for f in dataclasses.fields(sub)})
 
 
-def run_e2e(ops, totals):
+def _device_seconds(prof) -> collections.Counter:
+    by_kernel: collections.Counter = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name[:60]] += e.time_range.elapsed_us() / 1e6
+    return by_kernel
+
+
+def run_e2e(ops, totals, runs):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import engine, substrate
@@ -314,10 +388,7 @@ def run_e2e(ops, totals):
                 _recording(substrate.substrate_of(learner, backend="kernels"),
                            dists), pcfg, X, Y, device="cuda")
             torch.cuda.synchronize()
-        by_kernel: collections.Counter = collections.Counter()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_kernel[e.name[:60]] += e.time_range.elapsed_us() / 1e6
+        by_kernel = _device_seconds(prof)
         device_s = sum(by_kernel.values())
         check = {}
         if pcfg.kind == "dynamic":
@@ -344,6 +415,7 @@ def run_e2e(ops, totals):
                       "divergences"):
             assert np.array_equal(getattr(got, field), getattr(again, field)), \
                 f"{name}: repeated run differs in {field}"
+        runs[name] = got
         emit({"phase": "e2e", "run": name, "m": m, "T": T_ROUNDS,
               "kernel_launches": counts,
               "rounds_per_s": T_ROUNDS / secs,
@@ -357,6 +429,268 @@ def run_e2e(ops, totals):
               # over the wall time of the unprofiled kernel run
               "device_s": device_s, "device_busy_share": device_s / secs,
               "top_kernels_s": dict(by_kernel.most_common(5)), **check})
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve_stream end to end
+# ---------------------------------------------------------------------------
+
+SIM_FIELDS = ("cumulative_loss", "cumulative_errors", "cumulative_bytes",
+              "sync_rounds", "eps_history", "divergences")
+
+#: bench_serve's constants and the README's serving example
+QPS_SLO = 0.3
+QPS_PREDICT_COST = 0.04
+SERVE_RATE = 16.0
+
+
+def serve_configs():
+    """(name, phase-3 run it must equal, kernels it must launch, arrival
+    kind, engine keywords)."""
+    from repro_torch.runtime import SystemConfig
+    sys_cfg = SystemConfig(seed=0, compute_jitter=0.3, base_latency=0.05,
+                           bandwidth=1e7)
+    continuous = dict(policy="continuous", slots=2, slo=QPS_SLO,
+                      predict_cost=QPS_PREDICT_COST, max_queue=256,
+                      overload="shed", sys_cfg=sys_cfg)
+    tick = dict(policy="tick", tick_interval=0.25,
+                predict_cost=QPS_PREDICT_COST, sys_cfg=sys_cfg)
+    return [
+        ("serve_rff_dynamic", "rff_dynamic", ("rff", "rff_step"), "bursty",
+         continuous),
+        ("serve_sv_dynamic", "sv_dynamic", ("sv_predict", "quadform"),
+         "poisson", continuous),
+        ("serve_linear_periodic", "linear_periodic", ("linear_step",),
+         "poisson", tick),
+    ]
+
+
+class _Instrumented:
+    """Inside the block, ``KernelServingEngine`` keeps the engines it
+    serves (for their final models), the wall seconds of ``serve()``
+    and the host seconds of every predict launch (bucket build, copies,
+    ``predict_batch``, the read back): clock reads, nothing else
+    changes."""
+
+    def __init__(self, cls):
+        self.cls, self.engines, self.launch_s = cls, [], []
+        self.serve_s = 0.0
+
+    def __enter__(self):
+        cls, engines, launch_s = self.cls, self.engines, self.launch_s
+        self._serve, self._chunk = cls.serve, cls._predict_chunk
+        serve, chunk = self._serve, self._chunk
+
+        def timed_chunk(eng, reqs, bucket):
+            t0 = time.perf_counter()
+            out = chunk(eng, reqs, bucket)
+            launch_s.append(time.perf_counter() - t0)
+            return out
+
+        def kept_serve(eng, tenant=0):
+            engines.append(eng)
+            t0 = time.perf_counter()
+            out = serve(eng, tenant)
+            torch.cuda.synchronize()
+            self.serve_s += time.perf_counter() - t0
+            return out
+
+        cls._predict_chunk, cls.serve = timed_chunk, kept_serve
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.serve, self.cls._predict_chunk = self._serve, self._chunk
+
+
+def _serving_face(res) -> dict:
+    return {"latencies": res.latencies, "queue_depth": res.queue_depth,
+            "sync_delays": res.sync_delays,
+            "scalars": (res.bucket_counts, res.launches, res.num_shed,
+                        res.num_deferred, res.ticks, res.wall_clock,
+                        res.rounds)}
+
+
+def _assert_same_serving_face(a, b, label: str) -> None:
+    fa, fb = _serving_face(a), _serving_face(b)
+    for k in ("latencies", "queue_depth", "sync_delays"):
+        assert fa[k].shape == fb[k].shape and np.array_equal(fa[k], fb[k]), \
+            f"{label}: serving face differs in {k}"
+    assert fa["scalars"] == fb["scalars"], f"{label}: {fa['scalars']} != " \
+        f"{fb['scalars']}"
+
+
+def _assert_same_sim(a, b, label: str) -> None:
+    for field in SIM_FIELDS:
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.shape == y.shape and np.array_equal(x, y), \
+            f"{label}: protocol view differs in {field}"
+
+
+def check_rows(sub, models, X, gen, dev) -> float:
+    """At every bucket size: ``predict_batch`` rows against
+    ``predict_one`` bitwise, and against the plain stacked ``predict``
+    of the reference backend (every learner on the row's input, the
+    row's learner picked) within the parity pair.  Returns the largest
+    difference from the plain version."""
+    from repro_torch.serving.engine import DEFAULT_BUCKETS
+    T, m, d = X.shape
+    plain_sub = dataclasses.replace(sub, backend="reference")
+    Xd = torch.as_tensor(X, device=dev)
+    err = 0.0
+    for bucket in DEFAULT_BUCKETS:
+        lids = torch.randint(0, m, (bucket,), generator=gen).to(dev)
+        Xb = Xd[torch.randint(0, T, (bucket,), generator=gen).to(dev),
+                torch.randint(0, m, (bucket,), generator=gen).to(dev)]
+        batched = sub.predict_batch(models, lids, Xb)
+        for i in range(bucket):
+            one = sub.predict_one(type(models)(*(v[lids[i]] for v in models)),
+                                  Xb[i])
+            assert torch.equal(batched[i], one), \
+                f"bucket {bucket}: row {i} differs from predict_one"
+        plain = torch.stack([plain_sub.predict(models, Xb[i].expand(m, d))[l]
+                             for i, l in enumerate(lids.tolist())])
+        err = max(err, close(batched, plain, f"predict_batch bucket {bucket}"))
+    return err
+
+
+def _answers(eng) -> tuple:
+    """(uids, predictions) of tenant 0's served requests, completion
+    order."""
+    reqs = eng._tenants[0].served
+    return (np.asarray([r.uid for r in reqs], np.int64),
+            np.asarray([r.yhat for r in reqs], np.float64))
+
+
+def check_rows_below_threshold(dev, gen) -> None:
+    """The serving row contract where no kernel engages (SV budget 64,
+    RFF D = 64 under ``backend="kernels"``): the plain expressions
+    with fixed-order sums, on models trained for 60 rounds."""
+    from repro_torch.core import engine, substrate
+    from repro_torch.core.learners import LearnerConfig
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.core.rff import RFFSpec
+    from repro_torch.core.rkhs import KernelSpec
+    from repro_torch.data.streams import susy_stream
+
+    m, T = 8, 60
+    out = {}
+    for name, learner in (
+            ("sv_budget64", LearnerConfig(
+                algo="kernel_sgd", loss="hinge", eta=0.5, lam=0.01,
+                budget=64, dim=D_IN, kernel=KernelSpec("gaussian",
+                                                       gamma=GAMMA))),
+            ("rff_D64", RFFSpec(dim=D_IN, num_features=64, gamma=GAMMA,
+                                seed=0))):
+        sub = substrate.substrate_of(learner, backend="kernels").on(dev)
+        X, Y = susy_stream(T, m, d=D_IN, seed=3)
+        step = engine.make_protocol_step(sub, "periodic")
+        params = engine.params_of(ProtocolConfig(kind="periodic", period=7))
+        carry = engine.init_protocol_carry(sub, m, dev)
+        for t in range(T):
+            carry, _ = step(params, carry, (torch.as_tensor(X[t], device=dev),
+                                            torch.as_tensor(Y[t], device=dev),
+                                            t))
+        out[name] = check_rows(sub, sub.models_of(carry[0]), X, gen, dev)
+    emit({"phase": "serve_rows_below_threshold",
+          "predict_batch_vs_plain_max_abs_err": out})
+
+
+def run_serving(ops, totals, runs):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.serving import (KernelServingEngine, make_arrivals,
+                                     serve_stream)
+
+    learners = {name: (learner, m, pcfg)
+                for name, learner, m, pcfg, _ in e2e_configs()}
+    gen = torch.Generator().manual_seed(1)
+    for name, e2e_name, kernels, arrival, kw in serve_configs():
+        learner, m, pcfg = learners[e2e_name]
+        X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+        arrivals = make_arrivals(arrival, rate=SERVE_RATE, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with _Instrumented(KernelServingEngine) as inst:
+            t0 = time.perf_counter()
+            got = serve_stream(learner, pcfg, X, Y, arrivals=arrivals,
+                               backend="kernels", device="cuda", **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            assert counts.get(k, 0) > 0, f"{name}: {k} never launched"
+            totals[k] = totals.get(k, 0) + counts[k]
+        if name == "serve_rff_dynamic":
+            # one featurization per bucket, nothing else featurizes
+            assert counts.get("rff") == got.launches, (counts, got.launches)
+        eng = inst.engines[0]
+        models = eng.sub.models_of(eng._tenants[0].carry[0])
+        rows_err = check_rows(eng.sub, models, X, gen, eng.device)
+
+        # the protocol view is phase 3's engine.run, bitwise
+        _assert_same_sim(got.sim, runs[e2e_name], name)
+        assert got.rounds == T_ROUNDS and got.num_requests > 0
+
+        with _Instrumented(KernelServingEngine) as ref_inst:
+            t0 = time.perf_counter()
+            want = serve_stream(learner, pcfg, X, Y, arrivals=arrivals,
+                                backend="reference", device="cuda", **kw)
+            torch.cuda.synchronize()
+            ref_secs = time.perf_counter() - t0
+        _assert_same_serving_face(got, want, f"{name} vs reference backend")
+        # the answers: the same requests served, each prediction within
+        # the parity pair of the reference backend's
+        (uids, yhat), (ref_uids, ref_yhat) = (
+            _answers(eng), _answers(ref_inst.engines[0]))
+        assert np.array_equal(uids, ref_uids), f"{name}: served requests"
+        assert len(yhat) == got.num_requests and np.all(np.isfinite(yhat))
+        np.testing.assert_allclose(yhat, ref_yhat, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL,
+                                   err_msg=f"{name}: predictions")
+        assert np.array_equal(got.sim.sync_rounds, want.sim.sync_rounds)
+        assert np.array_equal(got.sim.cumulative_bytes,
+                              want.sim.cumulative_bytes)
+        np.testing.assert_allclose(got.sim.cumulative_loss,
+                                   want.sim.cumulative_loss,
+                                   rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   err_msg=name)
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = serve_stream(learner, pcfg, X, Y, arrivals=arrivals,
+                                 backend="kernels", device="cuda", **kw)
+            torch.cuda.synchronize()
+        _assert_same_sim(got.sim, again.sim, f"{name} repeat")
+        _assert_same_serving_face(got, again, f"{name} repeat")
+        by_kernel = _device_seconds(prof)
+        device_s = sum(by_kernel.values())
+        launch_s = np.asarray(inst.launch_s)
+        emit({"phase": "serve", "run": name, "m": m, "T": T_ROUNDS,
+              "arrivals": arrival, "policy": got.policy,
+              "kernel_launches": counts,
+              "serve_stream_wall_s": secs, "serve_wall_s": inst.serve_s,
+              "requests": got.num_requests, "shed": got.num_shed,
+              "requests_per_wall_s": got.num_requests / secs,
+              "rounds_per_wall_s": T_ROUNDS / secs,
+              "predict_launches": got.launches,
+              "bucket_counts": {str(k): v for k, v in
+                                sorted(got.bucket_counts.items())},
+              "host_ms_per_launch_mean": 1e3 * float(launch_s.mean()),
+              "host_ms_per_launch_p50": 1e3 * float(np.median(launch_s)),
+              "host_s_in_launches": float(launch_s.sum()),
+              "reference_serve_wall_s": ref_secs,
+              "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
+              "total_loss": got.total_loss,
+              "max_memory_allocated": peak,
+              "device_s": device_s, "device_busy_share": device_s / secs,
+              "top_kernels_s": dict(by_kernel.most_common(5)),
+              "predictions_max_abs_err_vs_reference": float(
+                  np.max(np.abs(yhat - ref_yhat))),
+              "predict_batch_vs_plain_max_abs_err": rows_err,
+              "event_clock_latency": got.latency_percentiles(),
+              "event_clock_wall": got.wall_clock})
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +717,7 @@ def main() -> int:
     from repro_torch import device as device_mod
     from repro_torch.kernels import _build, fused, ops, ref
     from repro_torch.kernels import quadform as qf
+    from repro_torch.kernels import rff as rffmod
 
     dev = device_mod.resolve("cuda")
     smi = nvidia_smi()
@@ -406,12 +741,15 @@ def main() -> int:
             ("primal_step_rff",
              lambda: check_primal_step(fused, ref, dev, gen, True)),
             ("primal_step_linear",
-             lambda: check_primal_step(fused, ref, dev, gen, False))):
+             lambda: check_primal_step(fused, ref, dev, gen, False)),
+            ("rff", lambda: check_rff(rffmod, ref, dev, gen))):
         errs, ms, plain, (bms, by) = fn()
         results[name] = dict(errs=errs, ms=ms["ms"], plain_ms=plain["ms"],
                              bound_ms=bms, bound_by=by,
                              device_ms=ms["device_ms"],
-                             plain_device_ms=plain["device_ms"])
+                             plain_device_ms=plain["device_ms"],
+                             **{k: v for k, v in ms.items()
+                                if k.endswith("_m1")})
         emit({"phase": "kernel", "name": name, "max_abs_err": errs,
               **{k: v for k, v in results[name].items() if k != "errs"}})
     torch.cuda.synchronize()
@@ -420,7 +758,10 @@ def main() -> int:
     # timings: in this mode torch.empty fills its output, an extra kernel)
     torch.use_deterministic_algorithms(True)
     totals: dict = {}
-    run_e2e(ops, totals)
+    runs: dict = {}
+    run_e2e(ops, totals, runs)
+    run_serving(ops, totals, runs)
+    check_rows_below_threshold(dev, gen)
 
     meta = {
         "sv_predict": ("src/repro_torch/kernels/csrc/sv_predict.cu",
@@ -432,6 +773,8 @@ def main() -> int:
         "primal_step_linear": ("src/repro_torch/kernels/csrc/primal_step.cu",
                                "src/repro/kernels/fused.py:237",
                                ("linear_step",)),
+        "rff": ("src/repro_torch/kernels/csrc/rff.cu",
+                "src/repro/kernels/rff.py:50", ("rff",)),
     }
     kernels = []
     for name, (source, replaces, counters) in meta.items():

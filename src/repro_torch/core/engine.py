@@ -7,6 +7,12 @@ per-round observable on the device.  Where the reference compiles one
 round's per-learner outputs into preallocated (T, m) device tensors;
 the host reads them once, at the end.
 
+One round is :func:`make_protocol_step`'s ``step``, the counterpart
+of the reference's scan body: ``run`` iterates it, and the serving
+engine (serving/engine.py) drives the same function one labeled round
+at a time, so a serving run's protocol view equals ``run``'s bitwise
+on the same device.
+
 Control flow: ``lax.cond`` becomes ``if``.  Periodic syncs and the
 dynamic protocol's check rounds are decided on the host from ``t``
 alone; the only value that crosses to the host during a run is the
@@ -24,7 +30,7 @@ wait for later slices (ROADMAP.md) and raise NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -63,6 +69,78 @@ def allreduce_cost(sub: Substrate, m: int) -> int:
             f"per-sync ring bytes {cost} for m={m} overflow the byte "
             "ledger's int32; use the host accounting at this scale")
     return cost
+
+
+class ScanParams(NamedTuple):
+    """The protocol parameters a step reads, as host numbers."""
+
+    delta: float        # the reference's float32 delta
+    period: int
+    mini_batch: int
+
+
+def params_of(pcfg: ProtocolConfig) -> ScanParams:
+    """The step's view of one ProtocolConfig (the reference's
+    ``params_of``): delta rounded to float32 as the reference traces it."""
+    return ScanParams(delta=float(np.float32(pcfg.delta)),
+                      period=int(pcfg.period),
+                      mini_batch=int(pcfg.mini_batch))
+
+
+def make_protocol_step(sub: Substrate, kind: str, *,
+                       record_divergence: bool = False,
+                       topology: str = "coordinator"):
+    """One protocol round as a function — the body ``run`` iterates.
+
+    Returns ``step(params, carry, xs) -> (carry, outs)`` with
+    ``carry = (stacked learner state, reference, ledger)``,
+    ``xs = (x (m, d), y (m,), t int)`` and
+    ``outs = (loss (m,), err (m,), bytes, divergence, sync_flag, eps)``.
+    The flag is a host ``bool``; on a round without a sync ``bytes`` is
+    the int 0 and ``eps`` the float 0.0, and ``divergence`` is 0.0
+    unless it is recorded (``record_divergence`` or
+    ``sub.free_divergence``).  Everything else stays on the device.
+    """
+    if kind not in PROTOCOL_KIND_CODES:
+        raise ValueError(f"unknown protocol kind {kind!r}")
+    if topology not in TOPOLOGIES:
+        raise ValueError(
+            f"unknown topology {topology!r}; expected one of {TOPOLOGIES}")
+    record = bool(record_divergence) or sub.free_divergence
+
+    def step(params: ScanParams, carry, xs):
+        state, reference, ledger = carry
+        x, y, t = xs
+        state, losses, yhat = sub.round_stacked(state, (x, y))
+        err = _err_terms(sub.loss, yhat, y)
+        models = sub.models_of(state)
+
+        if kind == "none":
+            do_sync = False
+        elif kind == "continuous":
+            do_sync = True
+        elif kind == "periodic":
+            do_sync = (t + 1) % params.period == 0
+        else:   # dynamic: check the local conditions every mini_batch rounds
+            do_sync = ((t + 1) % params.mini_batch == 0 and bool(
+                torch.any(sub.dist_to_ref(models, reference) > params.delta)))
+
+        nbytes = 0
+        eps = 0.0
+        if do_sync:
+            fsync, eps = sub.average_stacked(models)
+            if topology == "coordinator":
+                nbytes, ledger = sub.sync_payload(models, ledger)
+            else:
+                nbytes = allreduce_cost(sub, x.shape[0])
+            models = sub.adopt(models, fsync)
+            reference = fsync
+            state = sub.with_models(state, models)
+        div = sub.divergence(models) if record else 0.0
+        return (state, reference, ledger), (losses, err, nbytes, div,
+                                             do_sync, eps)
+
+    return step
 
 
 def init_protocol_carry(sub: Substrate, m: int, device):
@@ -131,9 +209,14 @@ def run(
     Y = np.asarray(Y, np.float32)
     T, m, d = X.shape
     sub.validate(T, m, d)
-    ring_cost = allreduce_cost(sub, m) if topology == "allreduce" else 0
+    if topology == "allreduce":
+        allreduce_cost(sub, m)      # refuse an int32 overflow up front
     sub = sub.on(dev)
     record = bool(record_divergence) or sub.free_divergence
+    step = make_protocol_step(sub, pcfg.kind,
+                              record_divergence=record_divergence,
+                              topology=topology)
+    params = params_of(pcfg)
 
     Xd = torch.as_tensor(X, device=dev)
     Yd = torch.as_tensor(Y, device=dev)
@@ -143,40 +226,19 @@ def run(
     div_out = torch.zeros((T,), dtype=torch.float32, device=dev)
     eps_out = torch.zeros((T,), dtype=torch.float32, device=dev)
     flags = np.zeros((T,), bool)
-    delta = float(np.float32(pcfg.delta))      # the reference's f32 delta
 
-    state, reference, ledger = init_protocol_carry(sub, m, dev)
+    carry = init_protocol_carry(sub, m, dev)
     for t in range(T):
-        x, y = Xd[t], Yd[t]
-        state, losses, yhat = sub.round_stacked(state, (x, y))
+        carry, (losses, err, nbytes, div, fired, eps) = step(
+            params, carry, (Xd[t], Yd[t], t))
         loss_out[t] = losses
-        err_out[t] = _err_terms(sub.loss, yhat, y)
-        models = sub.models_of(state)
-
-        if pcfg.kind == "none":
-            do_sync = False
-        elif pcfg.kind == "continuous":
-            do_sync = True
-        elif pcfg.kind == "periodic":
-            do_sync = (t + 1) % pcfg.period == 0
-        else:   # dynamic: check the local conditions every mini_batch rounds
-            do_sync = ((t + 1) % pcfg.mini_batch == 0 and bool(
-                torch.any(sub.dist_to_ref(models, reference) > delta)))
-
-        if do_sync:
-            fsync, eps = sub.average_stacked(models)
-            if topology == "coordinator":
-                nbytes, ledger = sub.sync_payload(models, ledger)
-            else:
-                nbytes = ring_cost
-            models = sub.adopt(models, fsync)
-            reference = fsync
+        err_out[t] = err
+        if fired:
             bytes_out[t] = nbytes
             eps_out[t] = eps
             flags[t] = True
-            state = sub.with_models(state, models)
         if record:
-            div_out[t] = sub.divergence(models)
+            div_out[t] = div
 
     return assemble_sim_result(
         sub, bool(record_divergence), loss_out.cpu().numpy(),

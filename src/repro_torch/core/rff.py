@@ -66,11 +66,17 @@ def feature_scale(num_features: int) -> torch.Tensor:
     return torch.sqrt(torch.tensor(2.0 / num_features, dtype=torch.float32))
 
 
+def _sum_last(v: torch.Tensor) -> torch.Tensor:
+    return torch.sum(v, dim=-1)
+
+
 def featurize(spec: RFFSpec, W: torch.Tensor, b: torch.Tensor,
-              X: torch.Tensor) -> torch.Tensor:
+              X: torch.Tensor, sum_last=_sum_last) -> torch.Tensor:
     """phi(X): (..., d) -> (..., D), the projection as an explicit
-    multiply + last-axis reduce (row results independent of the batch)."""
-    proj = torch.sum(X[..., None, :] * W, dim=-1) + b
+    multiply + last-axis reduce (row results independent of the batch);
+    ``sum_last`` is that reduce (the serving face passes a fixed-order
+    one)."""
+    proj = sum_last(X[..., None, :] * W) + b
     return feature_scale(spec.num_features).to(X.device) * torch.cos(proj)
 
 

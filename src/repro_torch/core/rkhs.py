@@ -128,29 +128,37 @@ def masked_alpha(f: SVModel) -> torch.Tensor:
     return torch.where(active_mask(f), f.alpha, torch.zeros_like(f.alpha))
 
 
-def _gram_rows(spec: KernelSpec, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+def _sum_last(v: torch.Tensor) -> torch.Tensor:
+    return torch.sum(v, dim=-1)
+
+
+def _gram_rows(spec: KernelSpec, X: torch.Tensor, Y: torch.Tensor,
+               sum_last=_sum_last) -> torch.Tensor:
     """``gram`` with the cross term as multiply + last-axis reduce, so a
     row's floats do not depend on how many rows share the call (the
     reference's prediction-path contract).  (..., n, d), (..., N, d)
-    -> (..., n, N)."""
+    -> (..., n, N).  ``sum_last`` is the last-axis reduction."""
     X = X.float()
     Y = Y.float()
-    cross = torch.sum(X[..., :, None, :] * Y[..., None, :, :], dim=-1)
+    cross = sum_last(X[..., :, None, :] * Y[..., None, :, :])
     if spec.kind == "linear":
         return cross
     if spec.kind == "poly":
         return int_pow(cross + spec.coef0, spec.degree)
-    xx = torch.sum(X * X, dim=-1)[..., :, None]
-    yy = torch.sum(Y * Y, dim=-1)[..., None, :]
+    xx = sum_last(X * X)[..., :, None]
+    yy = sum_last(Y * Y)[..., None, :]
     sq = torch.clamp(xx + yy - 2.0 * cross, min=0.0)
     return torch.exp(-spec.gamma * sq)
 
 
-def predict(spec: KernelSpec, f: SVModel, X: torch.Tensor) -> torch.Tensor:
+def predict(spec: KernelSpec, f: SVModel, X: torch.Tensor,
+            sum_last=_sum_last) -> torch.Tensor:
     """f(X) = K(X, S) alpha with inactive slots masked: (..., n, d) ->
-    (..., n), batched over the model's leading axes."""
+    (..., n), batched over the model's leading axes.  ``sum_last`` is
+    every last-axis reduction (the serving face passes a fixed-order
+    one)."""
     a = masked_alpha(f)
-    return torch.sum(_gram_rows(spec, X, f.sv) * a[..., None, :], dim=-1)
+    return sum_last(_gram_rows(spec, X, f.sv, sum_last) * a[..., None, :])
 
 
 def quadform(K: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

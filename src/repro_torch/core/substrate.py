@@ -17,14 +17,26 @@ per-learner function the port writes the batch axis out.
 
 Backends: ``"reference"`` evaluates the plain expressions of
 core/rkhs.py and core/rff.py; ``"kernels"`` (the counterpart of the
-reference's ``"pallas"``) routes predict, the fused round and the
-dynamic distance through ``kernels.ops``.  The dispatch is
-engage-aware (``ops.engages``): below the 128 threshold the kernels
-backend runs the reference expressions verbatim, the same shape rule
-as the JAX package.
+reference's ``"pallas"``) routes predict, the RFF featurization, the
+fused round and the dynamic distance through ``kernels.ops``.  The
+dispatch is engage-aware (``ops.engages``): below the 128 threshold
+the kernels backend runs the reference expressions verbatim, the same
+shape rule as the JAX package.
 
-Not ported yet (ROADMAP.md): the node face (runtime), the masked
-faces (population) and ``predict_batch`` (serving).
+The serving face: ``predict_batch(models, lids, Xb)`` answers a padded
+bucket of requests, row i by learner ``lids[i]``, and ``predict_one``
+one request.  Both go through ``predict_rows``, so the serving
+contract — a bucket's row equals ``predict_one`` on that row bitwise —
+holds when ``predict_rows`` is row-independent: its kernels compute
+each row alone (``sv_predict``: a block per row; ``rff``: a thread per
+element), and every reduction around or instead of them (the primal
+row dot; below the threshold the SV expansion and the RFF projection)
+is :func:`_rowsum`, a fixed pairwise tree, because PyTorch's CUDA
+reduction splits a row among a number of threads that depends on the
+row count.
+
+Not ported yet (ROADMAP.md): the node face (runtime) and the masked
+faces (population).
 """
 from __future__ import annotations
 
@@ -46,6 +58,30 @@ def _kops():
     """Lazy import of the kernel face (kernels.ops)."""
     from ..kernels import ops
     return ops
+
+
+def _rowsum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed pairwise order, by elementwise
+    adds only (zero-padded to a power of two): a row's floats never
+    depend on how many rows share the call, on any device."""
+    n = v.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        v = torch.nn.functional.pad(v, (0, width - n))
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def _gather(models, lids: torch.Tensor):
+    """Rows ``lids`` of every field of a stacked NamedTuple model."""
+    return type(models)(*(v[lids] for v in models))
+
+
+def _stack_one(model):
+    """One model as a stack of one."""
+    return type(model)(*(v[None] for v in model))
 
 
 class Substrate:
@@ -79,6 +115,25 @@ class Substrate:
 
     def predict(self, models, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def predict_rows(self, picked, Xb: torch.Tensor) -> torch.Tensor:
+        """Row i answered by model ``picked[i]`` on input ``Xb[i]``:
+        (n, ...) models, (n, d) inputs -> (n,).  Must be row-independent
+        (the serving contract, see the module docstring)."""
+        raise NotImplementedError
+
+    def predict_batch(self, models, lids: torch.Tensor,
+                      Xb: torch.Tensor) -> torch.Tensor:
+        """Serve a padded bucket from the stacked models: request i is
+        answered by learner ``lids[i]`` on ``Xb[i]`` -> (n,).  Padding
+        rows repeat a learner id of the bucket with zero inputs and are
+        discarded by the caller.  Row i equals
+        ``predict_one(models[lids[i]], Xb[i])`` bitwise."""
+        return self.predict_rows(_gather(models, lids), Xb)
+
+    def predict_one(self, model, x: torch.Tensor) -> torch.Tensor:
+        """One (unstacked) model on one input (d,) -> scalar."""
+        return self.predict_rows(_stack_one(model), x[None])[0]
 
     def update(self, state, example):
         raise NotImplementedError
@@ -177,6 +232,14 @@ class SVSubstrate(Substrate):
             a = rkhs.masked_alpha(models)
             return _kops().sv_predict_spec(self.lcfg.kernel, x, models.sv, a)
         return rkhs.predict(self.lcfg.kernel, models, x[:, None, :])[:, 0]
+
+    def predict_rows(self, picked: SVModel, Xb: torch.Tensor) -> torch.Tensor:
+        # engaged: one sv_predict launch for the bucket, a block per row;
+        # below the threshold the plain expansion with fixed-order sums
+        if self._engaged():
+            return self.predict(picked, Xb)
+        return rkhs.predict(self.lcfg.kernel, picked, Xb[:, None, :],
+                            _rowsum)[:, 0]
 
     def update(self, state, example):
         return learners.kernel_update(self.lcfg, state, example)
@@ -318,6 +381,9 @@ class LinearSubstrate(_PrimalSubstrate):
     def predict(self, models, x: torch.Tensor) -> torch.Tensor:
         return torch.sum(models.w * x, dim=-1) + models.b
 
+    def predict_rows(self, picked, Xb: torch.Tensor) -> torch.Tensor:
+        return _rowsum(picked.w * Xb) + picked.b
+
     def update(self, state, example):
         return learners.linear_update(self.lcfg, state, example)
 
@@ -371,13 +437,19 @@ class RFFSubstrate(_PrimalSubstrate):
         W, b = rff.rff_params(self.spec)
         return W.to(device), b.to(device)
 
-    def _phi(self, X2d: torch.Tensor) -> torch.Tensor:
-        """phi over a batch of rows: (n, d) -> (n, D).  The plain map on
-        every backend: the reference's ``rff`` kernel serves this call
-        and is not ported yet (ROADMAP.md); the engine's round does not
-        come here under ``"kernels"`` (``fused_primal_step`` featurizes
-        in-kernel)."""
+    def _phi(self, X2d: torch.Tensor, rows: bool = False) -> torch.Tensor:
+        """phi over a batch of rows: (n, d) -> (n, D).  Engage-aware:
+        under ``"kernels"`` with max(n, D) >= 128 it is one ``rff``
+        launch (``ops.rff_features``), below that the plain map, whose
+        projection is a fixed-order sum when ``rows`` (the serving
+        face).  The engine's engaged round does not come here
+        (``fused_primal_step`` featurizes in-kernel)."""
         W, b = self._params(X2d.device)
+        if self.backend == "kernels" and _kops().engages(
+                X2d.shape[0], self.spec.num_features):
+            return _kops().rff_features(X2d, W, b)
+        if rows:
+            return rff.featurize(self.spec, W, b, X2d, _rowsum)
         return rff.featurize(self.spec, W, b, X2d)
 
     def init(self, m: int, device) -> RFFLearnerState:
@@ -386,6 +458,10 @@ class RFFSubstrate(_PrimalSubstrate):
     def predict(self, models, x: torch.Tensor) -> torch.Tensor:
         Z = self._phi(x)                               # (m, D)
         return torch.sum(models.w * Z, dim=-1) + models.b
+
+    def predict_rows(self, picked, Xb: torch.Tensor) -> torch.Tensor:
+        # one featurization for the whole bucket, then the row dots
+        return _rowsum(picked.w * self._phi(Xb, rows=True)) + picked.b
 
     def _round_with_features(self, st, Z, y):
         yhat = torch.sum(st.w * Z, dim=-1) + st.b

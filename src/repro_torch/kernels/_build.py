@@ -59,6 +59,8 @@ SIGNATURES = {
     # scale, loss, eta, decay, stream
     "repro_primal_step": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _I, _F, _I, _F, _F, _VP],
+    # X, W, b, Z, M, D, d, scale, stream
+    "repro_rff": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -18,13 +18,13 @@ from __future__ import annotations
 
 import torch
 
-from . import fused, quadform as quadform_mod, ref
+from . import fused, quadform as quadform_mod, ref, rff as rff_mod
 from ._build import LAUNCH_COUNTS
 
 _MIN_KERNEL = 128    # below this, use the plain expressions
 
 __all__ = ["LAUNCH_COUNTS", "engages", "reset_launch_counts", "sv_predict",
-           "quadform", "rkhs_dist_sq", "fused_primal_step",
+           "quadform", "rkhs_dist_sq", "fused_primal_step", "rff_features",
            "sv_predict_spec", "quadform_spec", "rkhs_dist_sq_spec"]
 
 
@@ -103,6 +103,17 @@ def fused_primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
     c = lambda t: None if t is None else t.contiguous()    # noqa: E731
     return fused.primal_step(c(X), c(Yl), c(w), c(b), W=c(W), bias=c(bias),
                              scale=scale, loss=loss, eta=eta, lam=lam)
+
+
+def rff_features(X, W, b, *, num_features=None, force_kernel=False):
+    """phi(X) = sqrt(2/D) cos(X W^T + b): X (M, d), W (D, d), b (D,) ->
+    (M, D) fp32, D = ``num_features`` or W's rows.  Engages on (M, D)
+    like the reference's; below the threshold it is the plain version."""
+    M, D = X.shape[0], W.shape[0]
+    if not force_kernel and not engages(M, D):
+        return ref.rff_ref(X, W, b, num_features=num_features or D)
+    return rff_mod.rff(X.contiguous(), W.contiguous(), b.contiguous(),
+                       num_features=num_features or D)
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,12 @@ They define what each CUDA kernel must compute.  A kernel wrapper runs
 its plain version when its tensors lie on the CPU (the CPU tests), and
 ``chip_smoke.py`` holds every kernel against its plain version on the
 card.  Same formulas as the reference's oracles: matmul cross terms,
-and per-row multiply + sum for the SV predictions.
+and per-row multiply + sum for the SV predictions and the RFF
+projection (the two functions under the serving row contract).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,6 +34,22 @@ def sv_predict_ref(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
     k = gram_ref(X[:, None, :], SV, kind=kind, gamma=gamma, degree=degree,
                  coef0=coef0)[:, 0, :]                       # (B, N)
     return torch.sum(k * A.float(), dim=-1)
+
+
+def rff_ref(X, W, b, *, num_features=None):
+    """Random Fourier features sqrt(2/D) cos(X W^T + b): X (M, d),
+    W (D, d), b (D,) -> (M, D), D = ``num_features`` or W's rows.  The
+    scale is the host float ``math.sqrt(2 / D)``, as the kernel gets it.
+
+    The projection is a multiply + last-axis sum, not ``X @ W.T``:
+    PyTorch's CPU matmul can give a row other low bits when M changes,
+    and the serving contract needs a bucket's row to equal the
+    single-row call bitwise on this path too."""
+    X = X.float()
+    W = W.float()
+    scale = math.sqrt(2.0 / (num_features or W.shape[0]))
+    proj = torch.sum(X[:, None, :] * W[None, :, :], dim=-1)
+    return scale * torch.cos(proj + b.float()[None, :])
 
 
 def quadform_ref(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0,

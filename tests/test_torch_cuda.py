@@ -10,7 +10,9 @@ that has only PyTorch; there, run it without the suite's conftest
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The tolerance is the suite's one parity pair, restated from
-tests/conftest.py:42-43 because this file may run without it.
+tests/conftest.py:42-43 because this file may run without it; ``rff``,
+whose outputs are bounded by sqrt(2/D), is held to a thousandth of
+that bound instead.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,9 @@ from repro_torch.core.protocol import ProtocolConfig
 from repro_torch.core.rff import RFFSpec
 from repro_torch.core.rkhs import KernelSpec
 from repro_torch.data.streams import susy_stream
-from repro_torch.kernels import fused, ops, quadform, ref
+from repro_torch.kernels import fused, ops, quadform, ref, rff
+from repro_torch.serving import (KernelServingEngine, make_arrivals,
+                                 serve_stream)
 
 PARITY_RTOL = 1e-3     # tests/conftest.py:42
 PARITY_ATOL = 5e-3     # tests/conftest.py:43
@@ -37,11 +41,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want, label):
+def _close(got, want, label, rtol=PARITY_RTOL, atol=PARITY_ATOL):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=PARITY_RTOL, atol=PARITY_ATOL,
-                               err_msg=label)
+                               rtol=rtol, atol=atol, err_msg=label)
 
 
 def _randn(gen, *shape, dev):
@@ -114,3 +117,59 @@ def test_engine_kernels_match_reference_and_repeat(family, cuda):
     np.testing.assert_allclose(got.cumulative_loss, want.cumulative_loss,
                                rtol=PARITY_RTOL, atol=PARITY_ATOL)
     np.testing.assert_array_equal(got.cumulative_loss, again.cumulative_loss)
+
+
+#: (M, D, d, input scale): the serving shapes, the edges, and x10
+#: inputs that put cos at arguments of order 10
+RFF_CASES = [(64, 2048, 18, 1.0), (32, 2048, 18, 1.0), (1, 2048, 18, 1.0),
+             (127, 129, 7, 1.0), (128, 128, 18, 1.0), (129, 130, 18, 1.0),
+             (3, 130, 18, 1.0), (64, 2048, 18, 10.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,d,scale", RFF_CASES)
+def test_rff_matches_plain_and_rows_are_independent(M, D, d, scale, cuda):
+    gen = torch.Generator().manual_seed(M * 7 + D)
+    X = scale * _randn(gen, M, d, dev=cuda)
+    W = 0.3 * _randn(gen, D, d, dev=cuda)
+    b = (2 * np.pi * torch.rand(D, generator=gen)).to(cuda)
+    ops.reset_launch_counts()
+    Z = rff.rff(X, W, b)
+    assert ops.LAUNCH_COUNTS["rff"] == 1
+    _close(Z, ref.rff_ref(X, W, b), f"rff M={M} D={D} d={d} x{scale}",
+           rtol=0.0, atol=1e-3 * np.sqrt(2.0 / D))
+    for i in {0, M // 2, M - 1}:
+        assert torch.equal(rff.rff(X[i:i + 1], W, b)[0], Z[i]), i
+
+
+@pytest.mark.cuda
+def test_rff_serve_stream_equals_engine_run(cuda, monkeypatch):
+    """A short RFF serving run launches ``rff`` for its buckets, its
+    protocol view is ``engine.run``'s bitwise, and its predictions are
+    the reference backend's within the parity pair."""
+    learner = RFFSpec(dim=18, num_features=2048, gamma=0.05)
+    pcfg = ProtocolConfig(kind="dynamic", delta=9.0, mini_batch=10)
+    X, Y = susy_stream(60, 8, d=18, seed=0)
+    engines = []
+    real_serve = KernelServingEngine.serve
+    monkeypatch.setattr(KernelServingEngine, "serve",
+                        lambda self, tenant=0: engines.append(self)
+                        or real_serve(self, tenant))
+    kw = dict(policy="continuous", slots=2, slo=0.3, predict_cost=0.04)
+    ops.reset_launch_counts()
+    res = serve_stream(learner, pcfg, X, Y, backend="kernels",
+                       arrivals=make_arrivals("bursty", rate=16.0, seed=0),
+                       **kw)
+    assert ops.LAUNCH_COUNTS["rff"] == res.launches > 0
+    serve_stream(learner, pcfg, X, Y, backend="reference",
+                 arrivals=make_arrivals("bursty", rate=16.0, seed=0), **kw)
+    got, want = ([(r.uid, r.yhat) for r in e._tenants[0].served]
+                 for e in engines)
+    assert [u for u, _ in got] == [u for u, _ in want] and got
+    np.testing.assert_allclose([y for _, y in got], [y for _, y in want],
+                               rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    run = engine.run(learner, pcfg, X, Y, backend="kernels")
+    for field in ("cumulative_loss", "cumulative_errors", "cumulative_bytes",
+                  "sync_rounds", "divergences"):
+        np.testing.assert_array_equal(getattr(res.sim, field),
+                                      getattr(run, field), err_msg=field)

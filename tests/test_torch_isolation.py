@@ -58,8 +58,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.convert\n"
         "from repro_torch.core import engine, substrate\n"
-        "from repro_torch.kernels import ops, fused, quadform, ref, _build\n"
+        "from repro_torch.kernels import ops, fused, quadform, ref, rff, _build\n"
         "from repro_torch.data import streams\n"
+        "from repro_torch import serving, runtime, telemetry\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -13,9 +13,15 @@ non-zero with no result line:
    shapes (ragged budgets, budget 1, all-padded coefficients), under
    the parity tolerance of tests/conftest.py:42-43 (``rff``, whose
    outputs are bounded by sqrt(2/D), to a thousandth of that bound,
-   with a bf16-projection control that must miss it); then its time
-   (CUDA events, after warm-up) beside the plain version's time and
-   the least time the card could take (``bound_ms``).
+   with a bf16-projection control that must miss it; ``flash`` and
+   ``gram`` to the JAX package's rtol = atol = 2e-5 in float32, each
+   with a TF32 control that must miss it; bf16 ``flash`` bitwise the
+   float32 kernel's result rounded once, and within 2 bf16 ulps of the
+   float32 plain result wherever that ulp is above the float32 limit);
+   then its time (CUDA events, after
+   warm-up) beside the plain version's time, the least time the card
+   could take (``bound_ms``) and, where one PyTorch call computes the
+   same function, that call's time (``library_ms``; timed only).
 3. end to end: ``engine.run`` at full width on ``susy_stream`` with
    d = 18, T = 1000, under ``backend="kernels"``: SV periodic and SV
    dynamic (m = 32, budget 1024), RFF dynamic (m = 32, D = 2048),
@@ -32,6 +38,26 @@ non-zero with no result line:
    size's rows as ``predict_one`` does, bitwise, and as the plain
    stacked ``predict`` does, within the parity pair.  Then the same
    row checks below the kernels' threshold (SV budget 64, RFF D = 64).
+5. ``gram_path``: ``ops.gram_spec`` on the SV sync's shape (m tau =
+   32768 SUSY rows, d = 18, gaussian); it must launch ``gram`` and
+   agree with the plain version within 2e-5, which a TF32 cross term
+   must miss (the ``gram`` kernel line times this shape only).
+6. ``lm_serve``: ``serving.lm.LMServingEngine`` with ``qwen2_5_3b`` at
+   full width and depth (36 layers, bf16, ``use_flash=True``, weights
+   drawn on the card from seed 0), batch 4, max_len 2048, eight
+   requests of 32 new tokens with prompts of (1500, 1200, 700, 333) and
+   (1024, 900, 512, 64) tokens.  It must launch ``flash`` once per
+   layer and prefill (72) and repeat bitwise.  Then the same requests
+   with deterministic algorithms off, as a user runs them: tokens per
+   wall second, prefill and decode seconds (CUDA events around each
+   call, no synchronize added), and from a profiled run the kernels,
+   device time and span of every step.  Last, teacher forcing against
+   the same model on the plain attention (``use_flash=False``): every
+   flash layer's output within 2 bf16 ulps (plus 2e-5) of the plain
+   ``_sdpa`` on the same post-RoPE q, k, v; prefill and decode logits
+   within 2e-2 of the largest logit (tests/test_decode.py:37); tokens
+   equal wherever the plain run's top-2 margin exceeds twice the row's
+   measured difference.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -66,10 +92,19 @@ PARITY_ATOL = 5e-3
 # rff's outputs are bounded by sqrt(2/D) (0.031 at D = 2048), far below
 # the parity pair's atol: it is held to a thousandth of that bound
 RFF_ATOL_OF_SCALE = 1e-3
+# flash and gram: the JAX package's own kernel tolerance in float32
+# (tests/test_kernels_pallas.py); bf16 flash within 2 bf16 ulps where
+# that ulp is above the float32 limit (near 0 the plain version's own
+# float32 rounding exceeds a bf16 ulp)
+KERNEL_TOL = 2e-5
+BF16_ULPS = 2
+# the LM's logits: tests/test_decode.py:37, of the largest logit
+LOGIT_TOL = 2e-2
 
-# Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12     # bf16 tensor cores, fp32 accumulation
 
 T_ROUNDS = 1000
 D_IN = 18                 # SUSY's 18 features
@@ -78,17 +113,28 @@ M_KERNEL = 32             # learners of the SV and RFF runs
 BUDGET = 1024             # SV budget tau
 N_FEATURES = 2048         # RFF features D
 M_LINEAR = 1024           # learners of the linear run
+GRAM_M = M_KERNEL * BUDGET   # the SV sync's Gram: m tau rows
+
+# The LM serving phase: the shape of the main path's flash launches
+LM_ARCH = "qwen2_5_3b"
+LM_BATCH = 4
+LM_MAX_LEN = 2048
+LM_NEW_TOKENS = 32
+LM_PROMPTS = (1500, 1200, 700, 333, 1024, 900, 512, 64)
+FLASH_MAIN = (LM_BATCH * 16, 1500, 128)    # (B H, S, hd) of the first batch
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S):
     """The least time for the work: the larger of bytes over the memory
-    rate and fp32 operations over the fp32 peak."""
+    rate and operations over the peak of the units that can do them
+    (by default fp32 operations on the CUDA cores)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS_PER_S * 1e3
+    t_f = flops / flops_per_s * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -131,6 +177,39 @@ def close(got, want, label: str, rtol: float = PARITY_RTOL,
     assert np.all(np.isfinite(got)), f"{label}: non-finite kernel output"
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=label)
     return float(np.max(np.abs(got - want))) if got.size else 0.0
+
+
+def excess(got, want, rtol: float, atol: float, rows: int = 2048):
+    """(largest |got - want|, elements outside atol + rtol |want|),
+    computed on the card in slabs of ``rows`` (a 32768^2 Gram does not
+    fit the host's comparison)."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    worst, bad = 0.0, 0
+    for i in range(0, max(got.shape[0], 1), rows):
+        g, w = got[i:i + rows].float(), want[i:i + rows].float()
+        assert bool(torch.isfinite(g).all()), "non-finite kernel output"
+        err = (g - w).abs()
+        if err.numel():
+            worst = max(worst, float(err.max()))
+            bad += int((err > atol + rtol * w.abs()).sum())
+    return worst, bad
+
+
+def close_dev(got, want, label: str, rtol: float, atol: float) -> float:
+    worst, bad = excess(got, want, rtol, atol)
+    assert bad == 0, f"{label}: {bad} elements outside rtol {rtol} / " \
+        f"atol {atol} (max err {worst})"
+    return worst
+
+
+def bf16_ulp(w: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |w| (w float32, already bf16)."""
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def tf32(on: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = on
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +379,138 @@ def check_rff(rffmod, ref, dev, gen):
             "max_any_shape": max(errs.values())}
     return errs, dict(ms, ms_m1=one["ms"], device_ms_m1=one["device_ms"]), \
         plain, bound_ms(nbytes, flops)
+
+
+def check_flash(flashmod, ref, dev, gen):
+    """``flash`` against ``ref.flash_ref`` (float32 plain): float32 within
+    2e-5 (a TF32 plain version must miss that); bf16 the float32
+    kernel's result rounded once, and within 2 bf16 ulps of the plain
+    result rounded to bf16 (plus the float32 limit); a repeat bitwise."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    BH, S, hd = FLASH_MAIN
+    # (BH, S, hd, dtype, causal, window)
+    cases = [(BH, S, hd, bf16, True, 0), (BH, 1, hd, bf16, True, 0),
+             (BH, 127, hd, bf16, True, 0), (BH, 129, hd, bf16, True, 0),
+             (16, 256, hd, bf16, False, 0), (16, 256, hd, bf16, True, 100),
+             (16, 1500, 128, f32, True, 0), (16, 1, 128, f32, True, 0),
+             (16, 127, 128, f32, True, 0), (16, 129, 64, f32, True, 0),
+             (16, 256, 64, f32, False, 0), (16, 256, 64, f32, True, 100)]
+    errs, ulps, beyond = {}, {}, {}
+    control_err = None
+    for bh, s_, d, dt, causal, window in cases:
+        q, k, v = (torch.randn(bh, s_, d, generator=gen).to(dev).to(dt)
+                   for _ in range(3))
+        kw = dict(causal=causal, window=window)
+        label = f"flash {bh}x{s_}x{d} {str(dt)[6:]} causal={causal} " \
+                f"window={window}"
+        o = flashmod.flash_attention(q, k, v, **kw)
+        want = ref.flash_ref(q.float(), k.float(), v.float(), **kw)
+        if dt == f32:
+            errs[label] = close_dev(o, want, label, KERNEL_TOL, KERNEL_TOL)
+            if s_ == 1500:
+                tf32(True)
+                control = ref.flash_ref(q, k, v, **kw)
+                tf32(False)
+                control_err, bad = excess(control, want, KERNEL_TOL,
+                                          KERNEL_TOL)
+                assert bad > 0, f"the TF32 control passes ({control_err})"
+        else:
+            # the float32 kernel on the same (widened) values, rounded
+            # once to bf16, is the bf16 kernel's output bitwise; and it
+            # is within the float32 limit of the plain version
+            o32 = flashmod.flash_attention(q.float(), k.float(), v.float(),
+                                           **kw)
+            assert torch.equal(o, o32.to(bf16)), f"{label}: bf16 output " \
+                f"is not the float32 kernel's rounded once"
+            close_dev(o32, want, label + " (float32 kernel)", KERNEL_TOL,
+                      KERNEL_TOL)
+            w16 = want.to(bf16).float()
+            gap = (o.float() - w16).abs()
+            ratio = gap / bf16_ulp(w16)
+            ulps[label] = float(ratio.max())
+            far = ratio > BF16_ULPS
+            beyond[label] = {
+                "n": int(far.sum()), "of": int(o.numel()),
+                "max_abs_plain": float(w16.abs()[far].max()) if far.any()
+                else 0.0,
+                "max_abs_err": float(gap[far].max()) if far.any() else 0.0}
+            # 2 ulps wherever a bf16 ulp is above the float32 limit: below
+            # it the plain version's own float32 rounding decides the ulps
+            assert bool((gap <= BF16_ULPS * bf16_ulp(w16)
+                         + KERNEL_TOL).all()), (label, beyond[label])
+            errs[label] = float((o.float() - want).abs().max())
+        assert torch.equal(o, flashmod.flash_attention(q, k, v, **kw)), \
+            f"{label}: a repeat differs"
+    q, k, v = (torch.randn(BH, S, hd, generator=gen).to(dev).to(bf16)
+               for _ in range(3))
+    ms = time_ms(lambda: flashmod.flash_attention(q, k, v), iters=20)
+    plain = time_ms(lambda: ref.flash_ref(q, k, v), iters=5)
+    q4, k4, v4 = (t.view(LM_BATCH, BH // LM_BATCH, S, hd) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters=20)
+    pairs = S * (S + 1) // 2                 # causal: the visible pairs
+    gemm = BH * pairs * hd * 2               # q.k, and again p.v
+    nbytes = 2 * 4 * BH * S * hd             # q, k, v read, O written
+    # q.k: products of bf16 values are exact in fp32, so bf16 tensor
+    # cores accumulating in fp32 compute it at their peak; p.v with p
+    # in fp32 precision takes three bf16 passes (p split into bf16 high,
+    # middle and low parts; v is exact).  The softmax (scale, max,
+    # subtract, exp, sum: 5 per pair) runs beside them on the CUDA cores.
+    bound = max(bound_ms(nbytes, gemm * (1 + 3), BF16_TC_FLOPS_PER_S),
+                bound_ms(nbytes, BH * pairs * 5))
+    emit({"phase": "kernel_tolerance", "name": "flash",
+          "rtol": KERNEL_TOL, "atol": KERNEL_TOL, "bf16_ulps": BF16_ULPS,
+          "max_abs_err_fp32": max(v for k_, v in errs.items()
+                                  if "float32" in k_),
+          "max_ulps_bf16": max(ulps.values()),
+          "bf16_beyond_2_ulps": beyond,
+          "tf32_control_err": control_err,
+          # the same work all on the CUDA cores in fp32, as the kernel
+          # does it
+          "bound_ms_fp32_cores": bound_ms(nbytes, 2 * gemm)[0]})
+    main = next(iter(errs))
+    return ({"main": errs[main], "max_fp32": max(
+                v for k_, v in errs.items() if "float32" in k_)},
+            dict(ms, library_ms=library["ms"],
+                 library_device_ms=library["device_ms"]),
+            plain, bound)
+
+
+def check_gram(grammod, ref, dev, gen):
+    """``gram`` against ``ref.gram_ref`` within 2e-5 at the CPU tests'
+    edges; timed at the SV sync's shape, where ``gram_path`` holds it to
+    the plain version."""
+    kinds = ["gaussian", "poly", "linear"]
+    errs = {}
+    for kind in kinds:
+        for M, N in [(1, 1), (127, 129), (130, 150), (256, 384)]:
+            for d in (1, 6, D_IN):
+                X = torch.randn(M, d, generator=gen).to(dev)
+                Y = torch.randn(N, d, generator=gen).to(dev)
+                kw = dict(kind=kind, gamma=GAMMA)
+                label = f"gram {kind} {M}x{N} d={d}"
+                errs[label] = close_dev(grammod.gram(X, Y, **kw),
+                                        ref.gram_ref(X, Y, **kw), label,
+                                        KERNEL_TOL, KERNEL_TOL)
+    M = N = GRAM_M
+    X = torch.randn(M, D_IN, generator=gen).to(dev)
+    Y = torch.randn(N, D_IN, generator=gen).to(dev)
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    ms = time_ms(lambda: grammod.gram(X, Y, **kw), iters=20)
+    plain = time_ms(lambda: ref.gram_ref(X, Y, **kw), iters=10)
+    lin = time_ms(lambda: grammod.gram(X, Y, kind="linear"), iters=20)
+    library = time_ms(lambda: torch.matmul(X, Y.T), iters=20)
+    nbytes = 4 * (M * D_IN + N * D_IN + M * N)
+    flops = M * N * (2 * D_IN + 6) + (M + N) * 2 * D_IN
+    emit({"phase": "kernel_tolerance", "name": "gram",
+          "rtol": KERNEL_TOL, "atol": KERNEL_TOL,
+          "max_abs_err_edges": max(errs.values()),
+          # the linear kind, where one PyTorch call computes it
+          "linear_ms": lin["ms"], "linear_device_ms": lin["device_ms"],
+          "linear_library_ms": library["ms"],
+          "linear_library_device_ms": library["device_ms"]})
+    return ({"max_edges": max(errs.values())}, ms, plain,
+            bound_ms(nbytes, flops))
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +905,344 @@ def run_serving(ops, totals, runs):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: ops.gram_spec at the SV sync's shape
+# ---------------------------------------------------------------------------
+
+
+def run_gram_path(ops, ref, totals) -> float:
+    """Returns the largest |kernel - plain| of the full-size Gram."""
+    from repro_torch import device as device_mod
+    from repro_torch.core.rkhs import KernelSpec
+    from repro_torch.data.streams import susy_stream
+
+    X, _ = susy_stream(BUDGET, M_KERNEL, d=D_IN, seed=0)
+    X = torch.as_tensor(X.reshape(-1, D_IN), device=device_mod.resolve())
+    spec = KernelSpec("gaussian", gamma=GAMMA)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    K = ops.gram_spec(spec, X, X)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(ops.LAUNCH_COUNTS)
+    assert counts.get("gram", 0) > 0, "gram_path: gram never launched"
+    totals["gram"] = totals.get("gram", 0) + counts["gram"]
+    assert K.shape == (GRAM_M, GRAM_M)
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    want = ref.gram_ref(X, X, **kw)
+    err = close_dev(K, want, "gram_path", KERNEL_TOL, KERNEL_TOL)
+    diag = torch.diagonal(K)
+    assert float((diag - 1.0).abs().max()) <= KERNEL_TOL, "k(x, x) != 1"
+    mean_k = float(K.mean())
+    del K
+    tf32(True)
+    control = ref.gram_ref(X, X, **kw)
+    tf32(False)
+    control_err, bad = excess(control, want, KERNEL_TOL, KERNEL_TOL)
+    assert bad > 0, f"gram_path: the TF32 control passes ({control_err})"
+    emit({"phase": "gram_path", "shape": [GRAM_M, GRAM_M], "d": D_IN,
+          "kernel_launches": counts, "wall_s": secs,
+          "max_abs_err_vs_plain": err, "tf32_control_err": control_err,
+          "tf32_control_bad": bad, "mean_k": mean_k})
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: LM token serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _lm_requests(vocab: int, Request) -> list:
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n) for n in LM_PROMPTS]
+    return [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+
+
+def _left_padded(batch, B: int, dev) -> torch.Tensor:
+    S = max(len(r.prompt) for r in batch)
+    toks = np.zeros((B, S), np.int64)
+    for i, r in enumerate(batch):
+        toks[i, S - len(r.prompt):] = r.prompt
+    return torch.as_tensor(toks, device=dev)
+
+
+def _greedy_logits(api, params, tokens, vocab, forced=None):
+    """The engine's batch loop at the model API: prefill, then
+    LM_NEW_TOKENS - 1 decode steps.  Feeds ``forced`` (B, steps) tokens
+    when given (teacher forcing), else its own greedy tokens.  Returns
+    (logits per step (B, vocab) float32, the tokens fed back)."""
+    B, S = tokens.shape
+    caches = api.init_caches(B, LM_MAX_LEN)
+    logits, caches = api.prefill(params, {"tokens": tokens}, caches)
+    out, fed = [], []
+    for step in range(LM_NEW_TOKENS):
+        lg = logits[:, -1, :vocab].float()
+        out.append(lg)
+        nxt = (forced[:, step] if forced is not None
+               else torch.argmax(lg, dim=-1))
+        fed.append(nxt)
+        if step + 1 < LM_NEW_TOKENS:
+            logits, caches = api.decode(params, caches, nxt[:, None],
+                                        S + step)
+    return out, torch.stack(fed, dim=1)
+
+
+class _StepClock:
+    """Gives an engine a model API whose prefill and decode record a pair
+    of CUDA events around each call and add no synchronize: an interval
+    runs from the call's first enqueue to the end of its last kernel
+    (the engine reads each step's tokens back, so the stream is idle
+    when a decode starts)."""
+
+    def __init__(self, eng):
+        self.pairs = {"prefill": [], "decode": []}
+        eng.api = dataclasses.replace(
+            eng.api, prefill=self._wrap(eng.api.prefill, "prefill"),
+            decode=self._wrap(eng.api.decode, "decode"))
+
+    def _wrap(self, fn, key):
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            self.pairs[key].append((a, b))
+            return out
+        return timed
+
+    def seconds(self, key: str) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs[key]) / 1e3
+
+
+def _steps(prof) -> list:
+    """A served run's device timeline cut at each read back of the next
+    tokens (a Memcpy DtoH; the engine reads once per step).  Per step:
+    its kernels, their device seconds, the span from the previous read
+    back's end to this one's, and whether ``flash`` ran (a prefill)."""
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    steps, cur, last_end = [], [], None
+    for e in evs:
+        if "DtoH" in e.name:
+            start = last_end if last_end is not None else (
+                cur[0].time_range.start if cur else e.time_range.start)
+            steps.append({
+                "kernels": len(cur),
+                "device_s": sum(x.time_range.elapsed_us() for x in cur) / 1e6,
+                "span_s": (e.time_range.end - start) / 1e6,
+                "flash": any("flash" in x.name for x in cur)})
+            cur, last_end = [], e.time_range.end
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            cur.append(e)
+    return steps
+
+
+class _FlashAgainstPlain:
+    """While active, every ``_flash_sdpa`` call of the LM is held against
+    the plain ``_sdpa`` on the same post-RoPE q, k, v, at the ``flash``
+    kernel line's bf16 limit (2 ulps of the plain output plus 2e-5)."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.orig = attention, attention._flash_sdpa
+        self.calls, self.seqs = 0, set()
+        self.max_err, self.max_ulps, self.differ, self.of = 0.0, 0.0, 0, 0
+
+    def __enter__(self):
+        self.mod._flash_sdpa = self._checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._flash_sdpa = self.orig
+
+    def _checked(self, cfg, q, k, v, causal):
+        o = self.orig(cfg, q, k, v, causal)
+        S = q.shape[1]
+        mask = (self.mod.causal_mask(S, S, 0, 0, q.device) if causal
+                else None)
+        want = self.mod._sdpa(q, k, v, mask,
+                              self.mod._inv_sqrt(cfg.hd)).float()
+        gap = (o.float() - want).abs()
+        ulp = bf16_ulp(want)
+        assert bool((gap <= BF16_ULPS * ulp + KERNEL_TOL).all()), \
+            f"lm_serve: a flash layer at S={S} is {float(gap.max())} " \
+            f"off the plain attention"
+        self.calls += 1
+        self.seqs.add(S)
+        self.max_err = max(self.max_err, float(gap.max()))
+        # in ulps where the ulp, not the float32 floor, sets the limit
+        ruled = BF16_ULPS * ulp > KERNEL_TOL
+        if bool(ruled.any()):
+            self.max_ulps = max(self.max_ulps,
+                                float((gap[ruled] / ulp[ruled]).max()))
+        self.differ += int((gap > 0).sum())
+        self.of += gap.numel()
+        return o
+
+
+def run_lm_serve(ops, totals) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.models import build, count_params
+    from repro_torch.serving.lm import LMServingEngine, Request
+
+    cfg = get(LM_ARCH).with_(use_flash=True)
+    dev = device_mod.resolve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+
+    def engine():
+        return LMServingEngine(cfg, params, batch_size=LM_BATCH,
+                               max_len=LM_MAX_LEN)
+
+    def requests():
+        return _lm_requests(cfg.vocab, Request)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine().run(requests())
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    counts = dict(ops.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-len(LM_PROMPTS) // LM_BATCH)
+    assert counts.get("flash", 0) == cfg.n_layers * batches, counts
+    totals["flash"] = totals.get("flash", 0) + counts["flash"]
+    assert [r.uid for r in done] == list(range(len(LM_PROMPTS)))
+    outputs = {r.uid: r.output for r in done}
+    for r in done:
+        assert len(r.output) == LM_NEW_TOKENS and r.latency_s > 0
+        assert all(0 <= t < cfg.vocab for t in r.output)
+    again = engine().run(requests())
+    assert {r.uid: r.output for r in again} == outputs, "a repeat differs"
+
+    # served as a user runs it: deterministic algorithms off (they fill
+    # every torch.empty); prefill and decode timed by _StepClock; then a
+    # profiled run for each step's kernels
+    torch.use_deterministic_algorithms(False)
+    try:
+        eng = engine()
+        clock = _StepClock(eng)
+        t0 = time.perf_counter()
+        served = eng.run(requests())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine().run(requests())
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(True)
+    by_kernel = _device_seconds(prof)
+    device_s = sum(by_kernel.values())
+    steps = _steps(prof)
+    pre = [x for x in steps if x["flash"]]
+    dec = [x for x in steps if not x["flash"]]
+
+    def spread(key, rows, scale=1.0):
+        vals = sorted(x[key] * scale for x in rows) or [0.0]
+        return {"min": vals[0], "median": vals[len(vals) // 2],
+                "max": vals[-1]}
+
+    # teacher forcing against the plain attention (use_flash=False): the
+    # plain model's greedy run is the reference, the flash model is fed
+    # its tokens; each flash layer is held to _sdpa on its own q, k, v
+    flash_api, plain_api = build(cfg), build(cfg.with_(use_flash=False))
+    reqs = requests()
+    rel_err, excluded, held = 0.0, 0, 0
+    with _FlashAgainstPlain() as layers:
+        for b0 in range(0, len(reqs), LM_BATCH):
+            batch = reqs[b0:b0 + LM_BATCH]
+            tokens = _left_padded(batch, LM_BATCH, dev)
+            want, ref_toks = _greedy_logits(plain_api, params, tokens,
+                                            cfg.vocab)
+            got, _ = _greedy_logits(flash_api, params, tokens, cfg.vocab,
+                                    forced=ref_toks)
+            if b0 == 0:   # the flash prefill, repeated, is bitwise
+                again_logits, _ = flash_api.prefill(
+                    params, {"tokens": tokens},
+                    flash_api.init_caches(LM_BATCH, LM_MAX_LEN))
+                assert torch.equal(again_logits[:, -1, :cfg.vocab].float(),
+                                   got[0]), "a repeated prefill differs"
+            for step, (g, w) in enumerate(zip(got, want)):
+                diff = (g - w).abs()
+                rel_err = max(rel_err, float(diff.max() / w.abs().max()))
+                assert float(diff.max()) <= LOGIT_TOL * float(
+                    w.abs().max()), \
+                    f"lm_serve: step {step} logits differ by " \
+                    f"{float(diff.max())}"
+                top2 = torch.topk(w, 2, dim=-1).values
+                margin = (top2[:, 0] - top2[:, 1]).tolist()
+                row_diff = diff.max(dim=-1).values.tolist()
+                for i, r in enumerate(batch):
+                    if outputs[r.uid][:step] != ref_toks[i, :step].tolist():
+                        continue          # the served run left this prefix
+                    if margin[i] > 2 * row_diff[i]:
+                        held += 1
+                        assert outputs[r.uid][step] == int(
+                            ref_toks[i, step]), \
+                            f"lm_serve: uid {r.uid} step {step}"
+                    else:
+                        excluded += 1
+    assert layers.calls >= cfg.n_layers * batches, layers.calls
+    assert layers.seqs == {max(LM_PROMPTS[b:b + LM_BATCH])
+                           for b in range(0, len(LM_PROMPTS), LM_BATCH)}
+    generated = sum(len(o) for o in outputs.values())
+    prompt_tokens = sum(LM_BATCH * max(LM_PROMPTS[b:b + LM_BATCH])
+                        for b in range(0, len(LM_PROMPTS), LM_BATCH))
+    prefill_s, decode_s = clock.seconds("prefill"), clock.seconds("decode")
+    emit({"phase": "lm_serve", "arch": LM_ARCH, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": n_params,
+          "batch": LM_BATCH, "max_len": LM_MAX_LEN,
+          "requests": len(done), "prompt_lens": list(LM_PROMPTS),
+          "kernel_launches": counts, "init_s": init_s,
+          "max_memory_allocated": peak,
+          "generated_tokens": generated,
+          # deterministic algorithms on (the checked runs)
+          "deterministic_wall_s": det_s,
+          "deterministic_tokens_per_wall_s": generated / det_s,
+          # off, as served
+          "wall_s": secs, "tokens_per_wall_s": generated / secs,
+          "same_tokens": {r.uid: r.output for r in served} == outputs,
+          "prefill_s": prefill_s, "decode_s": decode_s,
+          "prefill_calls": len(clock.pairs["prefill"]),
+          "decode_calls": len(clock.pairs["decode"]),
+          "prefill_tokens_per_s": prompt_tokens / prefill_s,
+          "device_s": device_s, "device_busy_share": device_s / secs,
+          "top_kernels_s": dict(by_kernel.most_common(6)),
+          # the profiled run, step by step
+          "profiled_wall_s": prof_s, "steps_traced": len(steps),
+          "prefill_steps": len(pre), "decode_steps": len(dec),
+          "prefill_kernels": [x["kernels"] for x in pre],
+          "prefill_device_s": [x["device_s"] for x in pre],
+          "prefill_span_s": [x["span_s"] for x in pre],
+          "decode_kernels_per_step": spread("kernels", dec),
+          "decode_device_ms_per_step": spread("device_s", dec, 1e3),
+          "decode_span_ms_per_step": spread("span_s", dec, 1e3),
+          "flash_layers_checked": layers.calls,
+          "flash_layer_seq_lens": sorted(layers.seqs),
+          "flash_layer_max_abs_err": layers.max_err,
+          "flash_layer_max_ulps": layers.max_ulps,
+          "flash_layer_outputs_differing": layers.differ,
+          "flash_layer_outputs": layers.of,
+          "flash_vs_plain_max_rel_logit_err": rel_err,
+          "tokens_held": held, "tokens_excluded": excluded,
+          "latency_s": [r.latency_s for r in done]})
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi() -> str:
@@ -715,7 +1264,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch import device as device_mod
-    from repro_torch.kernels import _build, fused, ops, ref
+    from repro_torch.kernels import _build, flash, fused, gram, ops, ref
     from repro_torch.kernels import quadform as qf
     from repro_torch.kernels import rff as rffmod
 
@@ -735,33 +1284,40 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     results = {}
-    for name, fn in (
-            ("sv_predict", lambda: check_sv_predict(fused, ref, dev, gen)),
-            ("quadform", lambda: check_quadform(qf, ref, dev, gen)),
-            ("primal_step_rff",
-             lambda: check_primal_step(fused, ref, dev, gen, True)),
-            ("primal_step_linear",
-             lambda: check_primal_step(fused, ref, dev, gen, False)),
-            ("rff", lambda: check_rff(rffmod, ref, dev, gen))):
+    checks = (
+        ("sv_predict", lambda: check_sv_predict(fused, ref, dev, gen)),
+        ("quadform", lambda: check_quadform(qf, ref, dev, gen)),
+        ("primal_step_rff",
+         lambda: check_primal_step(fused, ref, dev, gen, True)),
+        ("primal_step_linear",
+         lambda: check_primal_step(fused, ref, dev, gen, False)),
+        ("rff", lambda: check_rff(rffmod, ref, dev, gen)),
+        ("flash", lambda: check_flash(flash, ref, dev, gen)),
+        ("gram", lambda: check_gram(gram, ref, dev, gen)))
+    for name, fn in checks:
         errs, ms, plain, (bms, by) = fn()
         results[name] = dict(errs=errs, ms=ms["ms"], plain_ms=plain["ms"],
                              bound_ms=bms, bound_by=by,
                              device_ms=ms["device_ms"],
                              plain_device_ms=plain["device_ms"],
                              **{k: v for k, v in ms.items()
-                                if k.endswith("_m1")})
+                                if k.endswith("_m1") or "library" in k})
         emit({"phase": "kernel", "name": name, "max_abs_err": errs,
               **{k: v for k, v in results[name].items() if k != "errs"}})
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
-    # the engine runs with deterministic algorithms (after the kernel
-    # timings: in this mode torch.empty fills its output, an extra kernel)
+    # the runs use deterministic algorithms (after the kernel timings:
+    # in this mode torch.empty fills its output, an extra kernel)
     torch.use_deterministic_algorithms(True)
     totals: dict = {}
     runs: dict = {}
     run_e2e(ops, totals, runs)
     run_serving(ops, totals, runs)
     check_rows_below_threshold(dev, gen)
+    results["gram"]["errs"]["main"] = run_gram_path(ops, ref, totals)
+    torch.cuda.empty_cache()
+    run_lm_serve(ops, totals)
 
     meta = {
         "sv_predict": ("src/repro_torch/kernels/csrc/sv_predict.cu",
@@ -775,6 +1331,10 @@ def main() -> int:
                                ("linear_step",)),
         "rff": ("src/repro_torch/kernels/csrc/rff.cu",
                 "src/repro/kernels/rff.py:50", ("rff",)),
+        "flash": ("src/repro_torch/kernels/csrc/flash.cu",
+                  "src/repro/kernels/flash.py:112", ("flash",)),
+        "gram": ("src/repro_torch/kernels/csrc/gram.cu",
+                 "src/repro/kernels/gram.py:78", ("gram",)),
     }
     kernels = []
     for name, (source, replaces, counters) in meta.items():
@@ -786,8 +1346,10 @@ def main() -> int:
             "max_abs_err": max(r["errs"].values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # no single PyTorch call computes any of these functions
-            "library_ms": None, "device_ms": r["device_ms"],
+            # flash: scaled_dot_product_attention on the same bf16
+            # tensors; no single PyTorch call computes the others (gram's
+            # main kind is the gaussian)
+            "library_ms": r.get("library_ms"), "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"]})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -5,6 +5,10 @@ anything array-like with the reference's field names (its NamedTuples
 hold JAX arrays, which ``np.asarray`` reads) and build the port's
 NamedTuples of tensors on ``device``: floats as float32, ids and
 counters as int32, exactly as the reference stores them.
+
+``lm_params`` carries an LM parameter tree across (each leaf keeps its
+float32 or bfloat16 type); ``to_numpy`` reads the port's structures
+back, bfloat16 widened to float32 (exact).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import device as device_mod
 from .core.learners import KernelLearnerState, LinearLearnerState
 from .core.rff import RFFLearnerState, RFFSpec
 from .core.rkhs import SVModel
@@ -56,13 +61,57 @@ def rff_spec(spec: Any, W, b) -> RFFSpec:
                    b=np.asarray(b, dtype=np.float32))
 
 
+_FLOAT_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _leaf(x, device) -> torch.Tensor:
+    """A float leaf in its own type.  A JAX bfloat16 array reads as an
+    ``ml_dtypes`` array, which torch cannot take: it goes through
+    float32, and back to bfloat16, which is exact."""
+    kind = str(np.asarray(x).dtype)
+    if kind not in _FLOAT_TYPES:
+        raise TypeError(f"parameter of type {kind}")
+    t = torch.as_tensor(np.array(x, np.float32), device=device)
+    return t.to(_FLOAT_TYPES[kind])
+
+
+def _tree(t, fn):
+    if isinstance(t, dict):
+        return {k: _tree(v, fn) for k, v in t.items()}
+    return fn(t)
+
+
+def lm_params(params: Any, cfg, device=None) -> dict:
+    """The port's LM parameters from the reference's tree
+    (``repro.models.build(cfg).init``): ``embed``, ``final_norm``,
+    ``lm_head`` when untied, and ``params["stages"][0]["b0"]``'s leading
+    axis of n_layers unstacked into ``layers``, one dict per layer.
+    ``device=None`` is the CUDA card."""
+    dev = device_mod.resolve(device)
+    if tuple(cfg.stages) != ((("attn",), cfg.n_layers),) \
+            or len(params["stages"]) != 1:
+        raise NotImplementedError(
+            f"only a uniform stack of attention blocks is ported, not "
+            f"{cfg.stages}")
+    stacked = _tree(params["stages"][0]["b0"], np.asarray)
+    out = {k: _tree(params[k], lambda x: _leaf(x, dev))
+           for k in ("embed", "final_norm", "lm_head") if k in params}
+    out["layers"] = [_tree(stacked, lambda x, i=i: _leaf(x[i], dev))
+                     for i in range(cfg.n_layers)]
+    return out
+
+
 def to_numpy(tree: Any):
-    """A NamedTuple of tensors (nested) as the same NamedTuple of numpy
-    arrays; a lone tensor as an array."""
+    """A NamedTuple, dict or list of tensors (nested) as the same
+    structure of numpy arrays (bfloat16 as float32); a lone tensor as an
+    array."""
     if torch.is_tensor(tree):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree

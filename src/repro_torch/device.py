@@ -28,9 +28,14 @@ def set_precision_flags() -> None:
 
 def precision_flags() -> dict:
     """The flags as they stand, for run reports."""
-    return {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+    matmul = torch.backends.cuda.matmul
+    return {"cuda.matmul.allow_tf32": matmul.allow_tf32,
             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            # the LM's bf16 GEMMs (cuBLAS may reduce split-K partial sums
+            # in bf16 while this is True, PyTorch's default)
+            "cuda.matmul.allow_bf16_reduced_precision_reduction":
+                matmul.allow_bf16_reduced_precision_reduction}
 
 
 def resolve(device: DeviceLike = None) -> torch.device:

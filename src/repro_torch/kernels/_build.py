@@ -61,6 +61,11 @@ SIGNATURES = {
                           _I, _I, _I, _I, _F, _I, _F, _F, _VP],
     # X, W, b, Z, M, D, d, scale, stream
     "repro_rff": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
+    # X, Y, K, M, N, d, kind, gamma, degree, coef0, stream
+    "repro_gram": [_VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _F, _VP],
+    # q, k, v, o, BH, S, L, hd, bf16, scale, causal, window, stream
+    "repro_flash": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _I,
+                    _VP],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -164,13 +169,16 @@ def launch(count_as: str, entry: str, device: torch.device, *args) -> None:
     LAUNCH_COUNTS[count_as] += 1
 
 
-def check_operands(name: str, device: torch.device, **tensors) -> None:
+def check_operands(name: str, device: torch.device,
+                   dtypes: tuple = (torch.float32,), **tensors) -> None:
     """Refuse what the kernels do not take: every operand on ``device``,
-    float32 and contiguous."""
+    of a dtype the kernel declares in ``dtypes`` (float32 unless it says
+    otherwise) and contiguous."""
     for key, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} is {t.dtype}, not float32")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: {key} is {t.dtype}; the kernel "
+                             f"takes {', '.join(map(str, dtypes))}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")

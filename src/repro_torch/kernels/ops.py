@@ -18,14 +18,16 @@ from __future__ import annotations
 
 import torch
 
-from . import fused, quadform as quadform_mod, ref, rff as rff_mod
+from . import fused, gram as gram_mod, quadform as quadform_mod, ref, \
+    rff as rff_mod
 from ._build import LAUNCH_COUNTS
 
 _MIN_KERNEL = 128    # below this, use the plain expressions
 
-__all__ = ["LAUNCH_COUNTS", "engages", "reset_launch_counts", "sv_predict",
-           "quadform", "rkhs_dist_sq", "fused_primal_step", "rff_features",
-           "sv_predict_spec", "quadform_spec", "rkhs_dist_sq_spec"]
+__all__ = ["LAUNCH_COUNTS", "engages", "reset_launch_counts", "gram",
+           "sv_predict", "quadform", "rkhs_dist_sq", "fused_primal_step",
+           "rff_features", "gram_spec", "sv_predict_spec", "quadform_spec",
+           "rkhs_dist_sq_spec"]
 
 
 def engages(*dims) -> bool:
@@ -40,6 +42,19 @@ def reset_launch_counts() -> None:
 def _kw(spec) -> dict:
     return dict(kind=spec.kind, gamma=spec.gamma, degree=spec.degree,
                 coef0=spec.coef0)
+
+
+def gram(X, Y, *, kind="gaussian", gamma=1.0, degree=3, coef0=1.0,
+         force_kernel=False):
+    """K(X, Y): (M, d), (N, d) -> (M, N) fp32.  Engages on (M, N) like
+    the reference's; inputs of another float dtype are widened first, as
+    the reference's kernel does."""
+    M, N = X.shape[0], Y.shape[0]
+    if not force_kernel and not engages(M, N):
+        return ref.gram_ref(X, Y, kind=kind, gamma=gamma, degree=degree,
+                            coef0=coef0)
+    return gram_mod.gram(X.float().contiguous(), Y.float().contiguous(),
+                         kind=kind, gamma=gamma, degree=degree, coef0=coef0)
 
 
 def sv_predict(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
@@ -119,6 +134,10 @@ def rff_features(X, W, b, *, num_features=None, force_kernel=False):
 # ---------------------------------------------------------------------------
 # KernelSpec-driven entry points (the substrates' kernels backend)
 # ---------------------------------------------------------------------------
+
+
+def gram_spec(spec, X, Y, **kw):
+    return gram(X, Y, **_kw(spec), **kw)
 
 
 def sv_predict_spec(spec, X, SV, A, **kw):

@@ -7,6 +7,8 @@ its plain version when its tensors lie on the CPU (the CPU tests), and
 card.  Same formulas as the reference's oracles: matmul cross terms,
 and per-row multiply + sum for the SV predictions and the RFF
 projection (the two functions under the serving row contract).
+``flash_ref`` is the test oracle of the reference's flash kernel
+(tests/test_kernels_pallas.py): float32 einsum + softmax.
 """
 from __future__ import annotations
 
@@ -58,6 +60,27 @@ def quadform_ref(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0,
     Y (P, N, d), alpha (P, M), beta (P, N) -> (P,)."""
     K = gram_ref(X, Y, kind=kind, gamma=gamma, degree=degree, coef0=coef0)
     return (alpha.float()[:, None, :] @ K @ beta.float()[:, :, None])[:, 0, 0]
+
+
+def flash_ref(q, k, v, *, scale=None, causal=True, window=0):
+    """Attention over folded heads: q (BH, S, hd), k and v (BH, L, hd)
+    -> (BH, S, hd) in q's dtype.  Scores and weights in float32; query i
+    may see key j when j <= i (``causal``) and j > i - ``window``
+    (``window > 0``); hidden scores are -1e30, as the reference's."""
+    hd = q.shape[-1]
+    scale = float(scale) if scale is not None else hd ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    S, L = s.shape[-2:]
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(L, device=q.device)[None, :]
+    mask = torch.ones((S, L), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None], s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
 
 
 def _loss_grad_ref(loss, yhat, y):

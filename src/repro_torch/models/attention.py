@@ -1,0 +1,242 @@
+"""Grouped-query attention (port of ``repro/models/attention.py``, GQA).
+
+Projections use merged head dims (n_heads * head_dim), as the
+reference's.  The full-sequence path runs the hand-written flash kernel
+when ``cfg.use_flash`` and no window is set (``_flash_sdpa``), else the
+flat-H plain attention ``_sdpa``; one-token decode runs the grouped
+plain attention ``_sdpa_grouped`` against the KV cache, as the
+reference does.  All three compute scores and weights in float32 and
+return the input dtype.
+
+KV cache: k / v (B, L, K, hd) and the position held in each slot
+(``slot_pos``, -1 when empty).  Unlike the reference's functional
+update, ``gqa_decode`` and ``transformer._fill_kv_cache`` write into
+the cache's tensors in place and return the same cache (a full-width
+cache is 151 MB at B = 4, L = 2048; a copy per token would move it
+every step).
+
+MLA, cross attention, M-RoPE and the sliding-window ring cache raise
+``NotImplementedError`` (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..kernels.flash import flash_attention
+from .config import ModelConfig
+from .layers import apply_rope, dense, dense_init, rmsnorm
+
+Params = Dict[str, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor            # (B, L, K, hd)
+    v: torch.Tensor            # (B, L, K, hd)
+    slot_pos: torch.Tensor     # (L,) int32 position stored in each slot (-1 empty)
+
+    @property
+    def length(self) -> int:
+        return self.k.shape[1]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md, 'Modules still "
+        f"to port')")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, bias=cfg.qkv_bias),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype,
+                         bias=cfg.qkv_bias),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype,
+                         bias=cfg.qkv_bias),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones((hd,), dtype=dtype,
+                                           device=gen.device)}
+        p["k_norm"] = {"scale": torch.ones((hd,), dtype=dtype,
+                                           device=gen.device)}
+    return p
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    if cfg.attn_kind != "gqa":
+        raise _not_ported(f"attention kind {cfg.attn_kind!r}")
+    return gqa_init(gen, cfg, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Scaled dot-product attention with GQA grouping
+# ---------------------------------------------------------------------------
+
+
+def _inv_sqrt(hd: int) -> float:
+    """1 / sqrt(hd) rounded as the reference's float32 expression."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _flash_sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The flash kernel over (B, S, H, hd) heads: repeats GQA kv heads,
+    folds (B, H) into the kernel's leading axis.  The kernel masks the
+    ragged edge itself, so S needs no padding: its rows are the rows of
+    the reference's padded call."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if K != H:
+        k = torch.repeat_interleave(k, H // K, dim=2)
+        v = torch.repeat_interleave(v, H // K, dim=2)
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * H, t.shape[1], hd)
+
+    o = flash_attention(fold(q), fold(k), fold(v), causal=causal)
+    return o.reshape(B, H, S, hd).transpose(1, 2)
+
+
+def _mask_logits(logits: torch.Tensor, mask: Optional[torch.Tensor],
+                 lead: int) -> torch.Tensor:
+    if mask is None:
+        return logits
+    m = mask.reshape((1,) * lead + tuple(mask.shape[-2:]))
+    return torch.where(m, logits, torch.full_like(logits, NEG_INF))
+
+
+def _sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """GQA-grouped attention, no kv repeat: the decode path.
+    q (B, S, H, hd), k / v (B, L, K, hd)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    logits = torch.einsum("bskgh,blkh->bkgsl", qg.float(), k.float()) * scale
+    w = torch.softmax(_mask_logits(logits, mask, 3), dim=-1)
+    out = torch.einsum("bkgsl,blkh->bskgh", w, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """Flat-H attention: kv heads repeated to H.  q (B, S, H, hd),
+    k / v (B, L, K, hd)."""
+    H, K = q.shape[2], k.shape[2]
+    if K != H:
+        k = torch.repeat_interleave(k, H // K, dim=2)
+        v = torch.repeat_interleave(v, H // K, dim=2)
+    logits = torch.einsum("bshd,blhd->bhsl", q.float(), k.float()) * scale
+    w = torch.softmax(_mask_logits(logits, mask, 2), dim=-1)
+    out = torch.einsum("bhsl,blhd->bshd", w, v.float())
+    return out.to(q.dtype)
+
+
+def causal_mask(S: int, L: int, q_offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """(S, L) boolean: query i (absolute position q_offset + i) may see
+    key j."""
+    qpos = torch.arange(S, device=device)[:, None] + q_offset
+    kpos = torch.arange(L, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m
+
+
+# ---------------------------------------------------------------------------
+# GQA forward (full sequence) and decode step
+# ---------------------------------------------------------------------------
+
+
+def _positions_default(B: int, S: int, offset: int = 0,
+                       device=None) -> torch.Tensor:
+    return (torch.arange(S, device=device) + offset).expand(B, S)
+
+
+def _rotate(cfg: ModelConfig, q, k, positions):
+    if cfg.pos_kind != "rope":
+        return q, k
+    if cfg.mrope_sections:
+        raise _not_ported("M-RoPE")
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def gqa_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None, *,
+                causal: bool = True, window: int = 0,
+                return_kv: bool = False):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q, k, v = _qkv(cfg, p, x)
+    pos = positions if positions is not None else _positions_default(
+        B, S, device=x.device)
+    q, k = _rotate(cfg, q, k, pos)
+    if cfg.use_flash and window == 0:
+        y = _flash_sdpa(cfg, q, k, v, causal)
+    else:
+        mask = causal_mask(S, S, 0, window, x.device) if causal else None
+        y = _sdpa(q, k, v, mask, _inv_sqrt(hd))
+    out = dense(p["wo"], y.reshape(B, S, cfg.n_heads * hd))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def init_kv_cache(cfg: ModelConfig, B: int, length: int, dtype,
+                  device=None) -> KVCache:
+    shape = (B, length, cfg.n_kv_heads, cfg.hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        slot_pos=torch.full((length,), -1, dtype=torch.int32, device=device))
+
+
+def gqa_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, pos: int,
+               cache: KVCache, *, window: int = 0):
+    """One token at absolute position ``pos`` (a host int) against the
+    cache, which is written in place.  Returns (out, cache)."""
+    if window > 0:
+        raise _not_ported("the sliding-window ring cache")
+    B = x_t.shape[0]
+    hd = cfg.hd
+    pos = int(pos)
+    if not 0 <= pos < cache.length:
+        raise ValueError(f"position {pos} outside the cache of "
+                         f"{cache.length} slots")
+    q, k, v = _qkv(cfg, p, x_t)
+    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x_t.device)
+    q, k = _rotate(cfg, q, k, posb)
+
+    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+    cache.slot_pos[pos] = pos
+    spos = cache.slot_pos
+    mask = ((spos >= 0) & (spos <= pos)).reshape(1, 1, 1, -1)
+    y = _sdpa_grouped(q, cache.k, cache.v, mask, _inv_sqrt(hd))
+    out = dense(p["wo"], y.reshape(B, 1, cfg.n_heads * hd))
+    return out, cache

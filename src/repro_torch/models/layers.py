@@ -1,0 +1,143 @@
+"""Shared neural building blocks (port of ``repro/models/layers.py``).
+
+Plain functions over dictionaries of tensors with the reference's keys
+and layouts: a dense weight is ``(d_in, d_out)`` and the layer computes
+``x @ w + b``.  Norms and RoPE compute in float32 and return the input
+dtype, as the reference's do.
+
+Initializers take an explicit ``torch.Generator`` and draw on its
+device.  They follow the reference's scales, not its numbers: JAX's
+keys and PyTorch's generators give different draws from the same seed,
+so the tests carry the reference's parameters across
+(``convert.lm_params``).  ``apply_mrope`` and the causal conv1d family
+wait for the VLM, SSM and hybrid slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+def _randn(gen: torch.Generator, *shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+def norm_init(kind: str, d: int, dtype, device=None) -> Params:
+    return (rmsnorm_init(d, dtype, device) if kind == "rmsnorm"
+            else layernorm_init(d, dtype, device))
+
+
+def norm_apply(kind: str, p: Params, x: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    return rmsnorm(p, x, eps) if kind == "rmsnorm" else layernorm(p, x, eps)
+
+
+# ---------------------------------------------------------------------------
+# Dense / embeddings
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               bias: bool = False, scale: Optional[float] = None) -> Params:
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": (_randn(gen, d_in, d_out) * s).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
+    return {"table": (_randn(gen, vocab, d) * 0.02).to(dtype)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["table"])
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, hd/2)
+    angles = angles[..., None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype,
+             act: str = "silu_glu") -> Params:
+    if act == "silu_glu":
+        return {"wi": dense_init(gen, d, d_ff, dtype),
+                "wg": dense_init(gen, d, d_ff, dtype),
+                "wo": dense_init(gen, d_ff, d, dtype)}
+    return {"wi": dense_init(gen, d, d_ff, dtype, bias=True),
+            "wo": dense_init(gen, d_ff, d, dtype, bias=True)}
+
+
+def mlp(p: Params, x: torch.Tensor, act: str = "silu_glu") -> torch.Tensor:
+    if act == "silu_glu":
+        h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+    else:   # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(dense(p["wi"], x), approximate="tanh")
+    return dense(p["wo"], h)

@@ -1,0 +1,243 @@
+"""Decoder-only LM assembly (port of ``repro/models/transformer.py``,
+the dense ``"attn"`` block).
+
+Parameters are plain dictionaries with the reference's keys: ``embed``,
+``final_norm``, ``lm_head`` (untied only) and ``layers``, one block
+dictionary per layer.  The reference stacks identical blocks and scans
+over them (``params["stages"][0]["b0"]`` with a leading axis of
+n_layers); here that scan is a Python loop over ``layers``, and
+``convert.lm_params`` unstacks the reference's tree.  Caches are a list
+with one ``KVCache`` per layer, written in place.
+
+Three entry points, as the reference's:
+  forward_lm   -- full-sequence logits (+ an aux loss of 0)
+  prefill      -- full-sequence forward that also fills the caches
+  decode_step  -- one token against the caches
+
+The ``moe``, ``ssm`` and ``rglru`` block kinds, MLA, M-RoPE, the
+sliding-window ring cache and ``lm_loss`` (the training slice) raise
+``NotImplementedError`` (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from . import attention as attn
+from .config import ModelConfig
+from .layers import dense, dense_init, embed, embed_init, mlp, mlp_init, \
+    norm_apply, norm_init
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port's decoder does not run yet."""
+    if cfg.is_encdec:
+        raise attn._not_ported("the encoder-decoder family")
+    kinds = sorted(set(cfg.pattern) - {"attn"})
+    if kinds:
+        raise attn._not_ported(f"block kinds {kinds}")
+    if cfg.attn_kind != "gqa":
+        raise attn._not_ported(f"attention kind {cfg.attn_kind!r}")
+    if cfg.mrope_sections:
+        raise attn._not_ported("M-RoPE")
+    if cfg.window > 0:
+        raise attn._not_ported("the sliding-window ring cache")
+
+
+# ---------------------------------------------------------------------------
+# Block init / forward / decode
+# ---------------------------------------------------------------------------
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    if kind != "attn":
+        raise attn._not_ported(f"block kind {kind!r}")
+    dt, d = torch_dtype(cfg), cfg.d_model
+    return {
+        "norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
+        "attn": attn.attn_init(gen, cfg, dt),
+        "norm2": norm_init(cfg.norm_kind, d, dt, gen.device),
+        "mlp": mlp_init(gen, d, cfg.d_ff, dt, cfg.act),
+    }
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_forward(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                  positions: Optional[torch.Tensor]):
+    """Returns (x, aux_loss)."""
+    if kind != "attn":
+        raise attn._not_ported(f"block kind {kind!r}")
+    eps = cfg.norm_eps
+    h = norm_apply(cfg.norm_kind, p["norm1"], x, eps)
+    x = x + attn.gqa_forward(cfg, p["attn"], h, positions, window=cfg.window)
+    h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
+    return x + mlp(p["mlp"], h, cfg.act), _zero_aux(x)
+
+
+def block_cache_init(cfg: ModelConfig, kind: str, B: int, length: int,
+                     dtype, device=None) -> attn.KVCache:
+    if kind != "attn":
+        raise attn._not_ported(f"block kind {kind!r}")
+    if cfg.window > 0:
+        raise attn._not_ported("the sliding-window ring cache")
+    return attn.init_kv_cache(cfg, B, length, dtype, device)
+
+
+def _fill_kv_cache(cfg: ModelConfig, cache: attn.KVCache, kv,
+                   S: int) -> attn.KVCache:
+    """Write the prefill's keys and values into slots 0 .. S-1, in
+    place; the other slots are marked empty."""
+    k, v = kv                                   # (B, S, K, hd)
+    L = cache.length
+    if cfg.window > 0:
+        raise attn._not_ported("the sliding-window ring cache")
+    if S > L:
+        raise ValueError(f"prefill of {S} tokens into a cache of {L} slots")
+    cache.k[:, :S] = k.to(cache.k.dtype)
+    cache.v[:, :S] = v.to(cache.v.dtype)
+    pos = torch.arange(L, dtype=torch.int32, device=cache.slot_pos.device)
+    cache.slot_pos.copy_(torch.where(pos < S, pos, torch.full_like(pos, -1)))
+    return cache
+
+
+def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
+                  positions: Optional[torch.Tensor]):
+    """Full-sequence forward that also fills this block's cache.
+    Returns (x, cache, aux)."""
+    if kind != "attn":
+        raise attn._not_ported(f"block kind {kind!r}")
+    eps = cfg.norm_eps
+    S = x.shape[1]
+    h = norm_apply(cfg.norm_kind, p["norm1"], x, eps)
+    a, kv = attn.gqa_forward(cfg, p["attn"], h, positions, window=cfg.window,
+                             return_kv=True)
+    cache = _fill_kv_cache(cfg, cache, kv, S)
+    x = x + a
+    h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
+    return x + mlp(p["mlp"], h, cfg.act), cache, _zero_aux(x)
+
+
+def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
+    if kind != "attn":
+        raise attn._not_ported(f"block kind {kind!r}")
+    eps = cfg.norm_eps
+    h = norm_apply(cfg.norm_kind, p["norm1"], x_t, eps)
+    a, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache,
+                               window=cfg.window)
+    x_t = x_t + a
+    h = norm_apply(cfg.norm_kind, p["norm2"], x_t, eps)
+    return x_t + mlp(p["mlp"], h, cfg.act), cache
+
+
+# ---------------------------------------------------------------------------
+# Model init
+# ---------------------------------------------------------------------------
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Parameters drawn from ``gen`` on its device."""
+    check_supported(cfg)
+    dt = torch_dtype(cfg)
+    params: Params = {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
+        "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab, dt)
+    params["layers"] = [block_init(gen, cfg, kind) for kind in cfg.pattern]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                  embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(torch_dtype(cfg)))
+    if tokens is not None:
+        parts.append(embed(params["embed"], tokens))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = norm_apply(cfg.norm_kind, params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T
+    return dense(params["lm_head"], x)
+
+
+def forward_lm(params: Params, cfg: ModelConfig,
+               tokens: Optional[torch.Tensor],
+               embeds: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None):
+    """Returns (logits over padded_vocab, aux_loss)."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    aux = _zero_aux(x)
+    for kind, p in zip(cfg.pattern, params["layers"]):
+        x, a = block_forward(cfg, kind, p, x, positions)
+        aux = aux + a
+    return _logits(params, cfg, x), aux
+
+
+def lm_loss(params: Params, cfg: ModelConfig, tokens, labels, embeds=None):
+    raise attn._not_ported("lm_loss (the LM training slice)")
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, B: int, length: int, dtype=None,
+                device=None) -> List[attn.KVCache]:
+    """One empty cache per layer."""
+    check_supported(cfg)
+    dt = dtype or torch_dtype(cfg)
+    return [block_cache_init(cfg, kind, B, length, dt, device)
+            for kind in cfg.pattern]
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            caches, embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Full-sequence forward filling the caches.  Returns (last-token
+    logits (B, 1, V), caches)."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    new_caches = []
+    for kind, p, c in zip(cfg.pattern, params["layers"], caches):
+        x, c, _ = block_prefill(cfg, kind, p, c, x, positions)
+        new_caches.append(c)
+    return _logits(params, cfg, x[:, -1:, :]), new_caches
+
+
+def decode_step(params: Params, cfg: ModelConfig, caches,
+                token: torch.Tensor, pos):
+    """token: (B, 1) ints; pos: the new token's absolute position (a
+    host int or a 0-d tensor).  Returns (logits (B, 1, V), caches)."""
+    check_supported(cfg)
+    pos = int(pos)
+    x = embed(params["embed"], token)
+    new_caches = []
+    for kind, p, c in zip(cfg.pattern, params["layers"], caches):
+        x, c = block_decode(cfg, kind, p, c, x, pos)
+        new_caches.append(c)
+    return _logits(params, cfg, x), new_caches

@@ -7,8 +7,10 @@ through it with query traffic from the seeded arrival processes.  The
 protocol view equals ``core.engine.run``'s on the same device, and the
 serving face equals the reference's (tests/test_torch_serving.py).
 
-The LM token-serving engine (``repro.serving.lm``) waits for the LM
-stack (ROADMAP.md).
+``serving.lm`` holds the separate LM token-serving engine
+(``LMServingEngine``); as in the reference it is not imported here, so
+the kernel-serving path never loads the LM stack: import
+``repro_torch.serving.lm`` to use it.
 """
 from .arrivals import (ARRIVAL_KINDS, ArrivalProcess, BurstyArrivals,
                        DiurnalArrivals, PoissonArrivals, make_arrivals)

@@ -108,3 +108,35 @@ def test_rff_spec_carries_the_reference_draw():
         trff.featurize(ts, tW, tb, torch.from_numpy(X)).numpy(),
         np.asarray(jrff.featurize(js, W, b, jnp.asarray(X))),
         rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_params_round_trip(dtype):
+    """The reference's LM tree carried across and read back is the same
+    numbers, in the same type, one dict per layer."""
+    from repro.configs import get as jget
+    from repro.models import build as jbuild
+
+    from repro_torch.configs import get as tget
+    from repro_torch.models import count_params
+
+    jc = jget("qwen2_5_3b").smoke().with_(dtype=dtype)
+    tc = tget("qwen2_5_3b").smoke().with_(dtype=dtype)
+    jp = jbuild(jc).init(jax.random.PRNGKey(3))
+    tp = convert.lm_params(jp, tc, device="cpu")
+    want_type = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    assert len(tp["layers"]) == tc.n_layers and "lm_head" not in tp
+    assert count_params(tp) == sum(int(x.size) for x in jax.tree.leaves(jp))
+    back = convert.to_numpy(tp)
+    stacked = jp["stages"][0]["b0"]
+    for i, layer in enumerate(tp["layers"]):
+        for got, want, t in zip(
+                jax.tree.leaves(back["layers"][i]),
+                jax.tree.leaves(jax.tree.map(lambda a: a[i], stacked)),
+                jax.tree.leaves(layer)):
+            assert t.dtype == want_type
+            np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+    for key in ("embed", "final_norm"):
+        for got, want in zip(jax.tree.leaves(back[key]),
+                             jax.tree.leaves(jp[key])):
+            np.testing.assert_array_equal(got, np.asarray(want, np.float32))

@@ -12,7 +12,13 @@ that has only PyTorch; there, run it without the suite's conftest
 The tolerance is the suite's one parity pair, restated from
 tests/conftest.py:42-43 because this file may run without it; ``rff``,
 whose outputs are bounded by sqrt(2/D), is held to a thousandth of
-that bound instead.
+that bound instead.  ``flash`` and ``gram`` are held to the JAX
+package's own kernel tolerance, rtol = atol = 2e-5 in float32
+(tests/test_kernels_pallas.py); bf16 ``flash`` is the float32
+kernel's result rounded once, bitwise, and within 2 bf16 ulps of the
+float32 plain result rounded to bf16 wherever that ulp is above the
+float32 limit; the LM's flash prefill within 2e-2 of the largest
+logit, the bound of tests/test_decode.py:37.
 """
 import numpy as np
 import pytest
@@ -24,9 +30,12 @@ from repro_torch.core.protocol import ProtocolConfig
 from repro_torch.core.rff import RFFSpec
 from repro_torch.core.rkhs import KernelSpec
 from repro_torch.data.streams import susy_stream
-from repro_torch.kernels import fused, ops, quadform, ref, rff
+from repro_torch.configs import get as get_config
+from repro_torch.kernels import flash, fused, gram, ops, quadform, ref, rff
+from repro_torch.models import build
 from repro_torch.serving import (KernelServingEngine, make_arrivals,
                                  serve_stream)
+from repro_torch.serving.lm import LMServingEngine, Request
 
 PARITY_RTOL = 1e-3     # tests/conftest.py:42
 PARITY_ATOL = 5e-3     # tests/conftest.py:43
@@ -173,3 +182,98 @@ def test_rff_serve_stream_equals_engine_run(cuda, monkeypatch):
                   "sync_rounds", "divergences"):
         np.testing.assert_array_equal(getattr(res.sim, field),
                                       getattr(run, field), err_msg=field)
+
+
+KERNEL_TOL = 2e-5      # tests/test_kernels_pallas.py
+
+#: (BH, S, L, hd, dtype, causal, window)
+FLASH_CASES = [(8, 300, 300, 128, torch.bfloat16, True, 0),
+               (4, 1, 1, 128, torch.float32, True, 0),
+               (4, 127, 127, 64, torch.float32, True, 0),
+               (4, 129, 129, 128, torch.float32, True, 0),
+               (4, 256, 256, 64, torch.float32, False, 0),
+               (4, 256, 256, 64, torch.float32, True, 100),
+               (4, 64, 192, 64, torch.float32, False, 0),
+               (4, 129, 129, 64, torch.bfloat16, True, 0)]
+
+
+def bf16_ulp(w: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |w| (w float32, already bf16)."""
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,L,hd,dtype,causal,window", FLASH_CASES)
+def test_flash_matches_plain_and_repeats(BH, S, L, hd, dtype, causal,
+                                         window, cuda):
+    gen = torch.Generator().manual_seed(S * 31 + L + hd)
+    q = _randn(gen, BH, S, hd, dev=cuda).to(dtype)
+    k = _randn(gen, BH, L, hd, dev=cuda).to(dtype)
+    v = _randn(gen, BH, L, hd, dev=cuda).to(dtype)
+    kw = dict(causal=causal, window=window)
+    ops.reset_launch_counts()
+    o = flash.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCH_COUNTS["flash"] == 1 and o.dtype == dtype
+    assert o.shape == (BH, S, hd)
+    want = ref.flash_ref(q.float(), k.float(), v.float(), **kw)
+    if dtype == torch.float32:
+        _close(o, want, f"flash {BH, S, L, hd}", rtol=KERNEL_TOL,
+               atol=KERNEL_TOL)
+    else:
+        # the float32 kernel on the widened values, rounded once, is the
+        # bf16 output bitwise; 2 bf16 ulps of the plain result wherever
+        # that ulp is above the float32 limit (below it the plain
+        # version's own float32 rounding decides the ulps)
+        o32 = flash.flash_attention(q.float(), k.float(), v.float(), **kw)
+        assert torch.equal(o, o32.to(dtype))
+        _close(o32, want, "flash float32 kernel", rtol=KERNEL_TOL,
+               atol=KERNEL_TOL)
+        w16 = want.to(torch.bfloat16).float()
+        assert torch.all((o.float() - w16).abs()
+                         <= 2 * bf16_ulp(w16) + KERNEL_TOL)
+    assert torch.equal(o, flash.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_matches_plain(kind, cuda):
+    gen = torch.Generator().manual_seed(7)
+    ops.reset_launch_counts()
+    shapes = [(1, 1), (127, 129), (130, 150), (256, 384), (300, 4100)]
+    for M, N in shapes:
+        for d in (1, 6, 18, 40):
+            X, Y = _randn(gen, M, d, dev=cuda), _randn(gen, N, d, dev=cuda)
+            _close(gram.gram(X, Y, kind=kind, gamma=0.05),
+                   ref.gram_ref(X, Y, kind=kind, gamma=0.05),
+                   f"gram {kind} {M, N, d}", rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    assert ops.LAUNCH_COUNTS["gram"] == 4 * len(shapes)
+    with pytest.raises(ValueError, match="takes"):
+        gram.gram(X.double(), Y.double())
+
+
+@pytest.mark.cuda
+def test_lm_flash_prefill_matches_plain_and_serves(cuda):
+    cfg = get_config("qwen2_5_3b").smoke().with_(dtype="bfloat16")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    logits = {}
+    for use_flash in (False, True):
+        api = build(cfg.with_(use_flash=use_flash))
+        caches = api.init_caches(2, 160)
+        ops.reset_launch_counts()
+        logits[use_flash], _ = api.prefill(params, {"tokens": tokens}, caches)
+        assert ops.LAUNCH_COUNTS["flash"] == (cfg.n_layers if use_flash
+                                              else 0)
+    a, b = (logits[f][..., :cfg.vocab].float() for f in (True, False))
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n),
+                    max_new_tokens=4) for i, n in enumerate((150, 20, 7))]
+    ops.reset_launch_counts()
+    out = LMServingEngine(cfg.with_(use_flash=True), params, batch_size=2,
+                          max_len=160).run(reqs)
+    assert [r.uid for r in out] == [0, 1, 2]
+    assert all(len(r.output) == 4 for r in out)
+    assert ops.LAUNCH_COUNTS["flash"] == 2 * cfg.n_layers

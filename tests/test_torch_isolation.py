@@ -59,6 +59,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.convert\n"
         "from repro_torch.core import engine, substrate\n"
         "from repro_torch.kernels import ops, fused, quadform, ref, rff, _build\n"
+        "from repro_torch.kernels import flash, gram\n"
+        "from repro_torch import configs, models\n"
+        "from repro_torch.models import attention, layers, transformer\n"
+        "import repro_torch.serving.lm\n"
         "from repro_torch.data import streams\n"
         "from repro_torch import serving, runtime, telemetry\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -83,6 +87,28 @@ def test_default_device_is_cuda_and_raises_without_it():
         teng.run(LearnerConfig(algo="linear_sgd", dim=4),
                  ProtocolConfig(kind="periodic", period=2), X, Y)
     assert tdevice.resolve("cpu").type == "cpu"
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it():
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    from repro_torch.serving.lm import LMServingEngine
+
+    cfg = get("qwen2_5_3b").smoke()
+    api = build(cfg)
+    if torch.cuda.is_available():
+        params = api.init(0)
+        assert params["embed"]["table"].device.type == "cuda"
+        assert LMServingEngine(cfg, params).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_caches(1, 4)
+    params = api.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMServingEngine(cfg, params)
+    assert LMServingEngine(cfg, params, device="cpu").device.type == "cpu"
 
 
 def test_resolving_a_device_turns_tf32_off():

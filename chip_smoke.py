@@ -15,7 +15,11 @@ non-zero with no result line:
    outputs are bounded by sqrt(2/D), to a thousandth of that bound,
    with a bf16-projection control that must miss it; ``flash`` and
    ``gram`` to the JAX package's rtol = atol = 2e-5 in float32, each
-   with a TF32 control that must miss it; bf16 ``flash`` bitwise the
+   with a TF32 control that must miss it, ``flash`` also with a control
+   that rounds p once to bf16 before p.v, as a one-pass bf16 product
+   does, on the main path's bf16 inputs, which must miss it while the
+   float32 kernel meets it; where its products run and their rate on a
+   line of their own; bf16 ``flash`` bitwise the
    float32 kernel's result rounded once, and within 2 bf16 ulps of the
    float32 plain result wherever that ulp is above the float32 limit);
    then its time (CUDA events, after
@@ -122,6 +126,15 @@ LM_MAX_LEN = 2048
 LM_NEW_TOKENS = 32
 LM_PROMPTS = (1500, 1200, 700, 333, 1024, 900, 512, 64)
 FLASH_MAIN = (LM_BATCH * 16, 1500, 128)    # (B H, S, hd) of the first batch
+
+
+# A kernel redesigned in register tiles, and what its first version took
+# at the same shape (this script, on an H100 80GB HBM3 at 700 W): the
+# earlier values its line reports.
+EARLIER = {
+    "quadform": {"design": "one column and 32 rows a thread, a shared-"
+                 "memory load per FMA", "ms": 0.4035, "device_ms": 0.3991},
+}
 
 
 def emit(obj) -> None:
@@ -254,20 +267,26 @@ def check_sv_predict(fused, ref, dev, gen):
 
 def check_quadform(qf, ref, dev, gen):
     kinds = ["gaussian", "linear", "poly"]
-    cases = [(96, 1024, 1024), (3, 1, 1), (3, 31, 130), (3, 127, 129),
-             (3, 128, 128), (3, 130, 31), (2, 1000, 1000)]
+    # (P, M, N, d): the engine's shape, the edges, and M, N off the
+    # kernel's 64-row and 128-column tiles at one feature, one chunk of 32
+    # and two
+    cases = [(96, 1024, 1024, D_IN), (3, 1, 1, D_IN), (3, 31, 130, D_IN),
+             (3, 127, 129, D_IN), (3, 128, 128, D_IN), (3, 130, 31, D_IN),
+             (2, 1000, 1000, D_IN), (3, 63, 65, 1), (3, 65, 129, 33),
+             (2, 129, 127, 33)]
     errs = {}
     for kind in kinds:
-        for P, M, N in cases:
-            X = torch.randn(P, M, D_IN, generator=gen).to(dev)
-            Y = torch.randn(P, N, D_IN, generator=gen).to(dev)
+        for P, M, N, d in cases:
+            X = torch.randn(P, M, d, generator=gen).to(dev)
+            Y = torch.randn(P, N, d, generator=gen).to(dev)
             a = torch.randn(P, M, generator=gen).to(dev)
             b = torch.randn(P, N, generator=gen).to(dev)
             for label, aa in (("", a), (" padded", torch.zeros_like(a))):
                 kw = dict(kind=kind, gamma=GAMMA)
                 err = close(qf.quadform(X, Y, aa, b, **kw),
                             ref.quadform_ref(X, Y, aa, b, **kw),
-                            f"quadform {kind} P={P} M={M} N={N}{label}")
+                            f"quadform {kind} P={P} M={M} N={N} d={d}"
+                            f"{label}")
                 if (P, M) == (96, 1024) and not label:
                     errs[kind] = err
     P, M, N = 96, 1024, 1024
@@ -381,11 +400,27 @@ def check_rff(rffmod, ref, dev, gen):
         plain, bound_ms(nbytes, flops)
 
 
+def one_pass_p(q, k, v, causal=True):
+    """The plain attention with the weights p rounded once to bf16 before
+    p.v: a one-pass bf16 product, as ``scaled_dot_product_attention``
+    runs it.  The control that shows what keeping p in float32 through
+    p.v buys: the float32 kernel meets 2e-5, this misses it."""
+    S, L, hd = q.shape[1], k.shape[1], q.shape[2]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    if causal:
+        hide = torch.ones(S, L, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(hide[None], -1e30)
+    w = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bqk,bkd->bqd", w, v.float())
+
+
 def check_flash(flashmod, ref, dev, gen):
     """``flash`` against ``ref.flash_ref`` (float32 plain): float32 within
-    2e-5 (a TF32 plain version must miss that); bf16 the float32
-    kernel's result rounded once, and within 2 bf16 ulps of the plain
-    result rounded to bf16 (plus the float32 limit); a repeat bitwise."""
+    2e-5 (a TF32 plain version must miss that, and so must the plain
+    version with p rounded once to bf16 on the main path's bf16 inputs,
+    where the float32 kernel meets it); bf16 the float32 kernel's result
+    rounded once, and within 2 bf16 ulps of the plain result rounded to
+    bf16 (plus the float32 limit); a repeat bitwise."""
     bf16, f32 = torch.bfloat16, torch.float32
     BH, S, hd = FLASH_MAIN
     # (BH, S, hd, dtype, causal, window)
@@ -396,7 +431,7 @@ def check_flash(flashmod, ref, dev, gen):
              (16, 127, 128, f32, True, 0), (16, 129, 64, f32, True, 0),
              (16, 256, 64, f32, False, 0), (16, 256, 64, f32, True, 100)]
     errs, ulps, beyond = {}, {}, {}
-    control_err = None
+    control_err = one_pass_err = None
     for bh, s_, d, dt, causal, window in cases:
         q, k, v = (torch.randn(bh, s_, d, generator=gen).to(dev).to(dt)
                    for _ in range(3))
@@ -424,6 +459,11 @@ def check_flash(flashmod, ref, dev, gen):
                 f"is not the float32 kernel's rounded once"
             close_dev(o32, want, label + " (float32 kernel)", KERNEL_TOL,
                       KERNEL_TOL)
+            if (bh, s_, d) == FLASH_MAIN:
+                one_pass_err, bad = excess(one_pass_p(q, k, v), want,
+                                           KERNEL_TOL, KERNEL_TOL)
+                assert bad > 0, f"the one-pass p control passes " \
+                    f"({one_pass_err})"
             w16 = want.to(bf16).float()
             gap = (o.float() - w16).abs()
             ratio = gap / bf16_ulp(w16)
@@ -465,9 +505,16 @@ def check_flash(flashmod, ref, dev, gen):
           "max_ulps_bf16": max(ulps.values()),
           "bf16_beyond_2_ulps": beyond,
           "tf32_control_err": control_err,
+          "one_pass_p_control_err": one_pass_err,
           # the same work all on the CUDA cores in fp32, as the kernel
           # does it
           "bound_ms_fp32_cores": bound_ms(nbytes, 2 * gemm)[0]})
+    # where the products run and at what rate: attention's usual count
+    # (q.k and p.v on the visible pairs) over the device time
+    emit({"phase": "flash_route", "route": flashmod.ROUTE,
+          "shape": list(FLASH_MAIN), "device_ms": ms["device_ms"],
+          "attention_tflops": gemm * 2 / ms["device_ms"] / 1e9,
+          "library_attention_tflops": gemm * 2 / library["device_ms"] / 1e9})
     main = next(iter(errs))
     return ({"main": errs[main], "max_fp32": max(
                 v for k_, v in errs.items() if "float32" in k_)},
@@ -1222,6 +1269,8 @@ def run_lm_serve(ops, totals) -> None:
           "prefill_tokens_per_s": prompt_tokens / prefill_s,
           "device_s": device_s, "device_busy_share": device_s / secs,
           "top_kernels_s": dict(by_kernel.most_common(6)),
+          "flash_device_s": sum(t for name, t in by_kernel.items()
+                                if "flash" in name),
           # the profiled run, step by step
           "profiled_wall_s": prof_s, "steps_traced": len(steps),
           "prefill_steps": len(pre), "decode_steps": len(dec),
@@ -1303,7 +1352,8 @@ def main() -> int:
                              **{k: v for k, v in ms.items()
                                 if k.endswith("_m1") or "library" in k})
         emit({"phase": "kernel", "name": name, "max_abs_err": errs,
-              **{k: v for k, v in results[name].items() if k != "errs"}})
+              **{k: v for k, v in results[name].items() if k != "errs"},
+              **({"earlier": EARLIER[name]} if name in EARLIER else {})})
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 

@@ -28,14 +28,32 @@ __device__ __forceinline__ float int_pow(float x, int n) {
 }
 
 // k(x, y) from cross = <x, y>, xx = <x, x>, yy = <y, y>.  The gaussian
-// keeps the reference's xx + yy - 2 cross, clamped at 0.
+// keeps the reference's xx + yy - 2 cross, clamped at 0.  KIND is a
+// template parameter where a kernel instantiates one loop per kind.
+template <int KIND>
+__device__ __forceinline__ float kernel_value(float cross, float xx, float yy,
+                                              float gamma, int degree,
+                                              float coef0) {
+  if constexpr (KIND == KIND_LINEAR) {
+    return cross;
+  } else if constexpr (KIND == KIND_POLY) {
+    return int_pow(cross + coef0, degree);
+  } else {
+    // (xx + yy) - 2 cross: 2 cross is exact, so the fused form rounds once
+    // where the written one does
+    const float sq = fmaxf(fmaf(-2.0f, cross, xx + yy), 0.0f);
+    return expf(-gamma * sq);
+  }
+}
+
 __device__ __forceinline__ float kernel_value(int kind, float cross, float xx,
                                               float yy, float gamma,
                                               int degree, float coef0) {
-  if (kind == KIND_LINEAR) return cross;
-  if (kind == KIND_POLY) return int_pow(cross + coef0, degree);
-  const float sq = fmaxf(xx + yy - 2.0f * cross, 0.0f);
-  return expf(-gamma * sq);
+  if (kind == KIND_LINEAR)
+    return kernel_value<KIND_LINEAR>(cross, xx, yy, gamma, degree, coef0);
+  if (kind == KIND_POLY)
+    return kernel_value<KIND_POLY>(cross, xx, yy, gamma, degree, coef0);
+  return kernel_value<KIND_GAUSSIAN>(cross, xx, yy, gamma, degree, coef0);
 }
 
 // Sum of v over the block, in a fixed tree order; blockDim.x must be a

@@ -25,6 +25,8 @@ from . import _build, ref
 HEAD_DIMS = (64, 128)
 #: Input (and output) dtypes the kernel takes.
 DTYPES = (torch.float32, torch.bfloat16)
+#: Where the kernel's products run.
+ROUTE = "float32 FMA on the CUDA cores"
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True,

@@ -15,8 +15,8 @@ import torch
 
 from . import _build, ref
 
-#: Rows of X per block in pass 1 (``kRows`` in csrc/quadform.cu).
-ROWS_PER_BLOCK = 32
+#: Rows of X per block in pass 1 (``kTM`` in csrc/quadform.cu).
+ROWS_PER_BLOCK = 64
 KINDS = {"gaussian": 0, "linear": 1, "poly": 2}
 
 

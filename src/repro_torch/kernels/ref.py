@@ -62,6 +62,19 @@ def quadform_ref(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0,
     return (alpha.float()[:, None, :] @ K @ beta.float()[:, :, None])[:, 0, 0]
 
 
+def split_bf16(x):
+    """x in float32 -> (hi, mid, lo) in bf16, the three-part split that
+    the tensor-core ``flash`` (tools/flash_tc/flash_wgmma.cu) runs on p
+    (and on q, k, v in float32): hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid).  Their sum holds x's 24 bits; for a bf16
+    value mid and lo are zero."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def flash_ref(q, k, v, *, scale=None, causal=True, window=0):
     """Attention over folded heads: q (BH, S, hd), k and v (BH, L, hd)
     -> (BH, S, hd) in q's dtype.  Scores and weights in float32; query i

@@ -17,8 +17,10 @@ package's own kernel tolerance, rtol = atol = 2e-5 in float32
 (tests/test_kernels_pallas.py); bf16 ``flash`` is the float32
 kernel's result rounded once, bitwise, and within 2 bf16 ulps of the
 float32 plain result rounded to bf16 wherever that ulp is above the
-float32 limit; the LM's flash prefill within 2e-2 of the largest
-logit, the bound of tests/test_decode.py:37.
+float32 limit (the kernel runs both products on bf16 tensor cores,
+splitting into three bf16 parts what a bf16 value cannot hold); the
+LM's flash prefill within 2e-2 of the largest logit, the bound of
+tests/test_decode.py:37.
 """
 import numpy as np
 import pytest
@@ -194,7 +196,15 @@ FLASH_CASES = [(8, 300, 300, 128, torch.bfloat16, True, 0),
                (4, 256, 256, 64, torch.float32, False, 0),
                (4, 256, 256, 64, torch.float32, True, 100),
                (4, 64, 192, 64, torch.float32, False, 0),
-               (4, 129, 129, 64, torch.bfloat16, True, 0)]
+               (4, 129, 129, 64, torch.bfloat16, True, 0),
+               # around the kernel's 64-row query and 64-key tiles, S != L
+               (4, 63, 63, 64, torch.bfloat16, True, 0),
+               (4, 64, 64, 128, torch.float32, True, 0),
+               (4, 65, 65, 64, torch.float32, True, 0),
+               (4, 65, 65, 128, torch.bfloat16, True, 0),
+               (4, 63, 200, 64, torch.bfloat16, False, 0),
+               (4, 200, 65, 64, torch.float32, True, 0),
+               (4, 65, 130, 128, torch.bfloat16, True, 40)]
 
 
 def bf16_ulp(w: torch.Tensor) -> torch.Tensor:
@@ -233,6 +243,28 @@ def test_flash_matches_plain_and_repeats(BH, S, L, hd, dtype, causal,
         assert torch.all((o.float() - w16).abs()
                          <= 2 * bf16_ulp(w16) + KERNEL_TOL)
     assert torch.equal(o, flash.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 18, 33])
+@pytest.mark.parametrize("kind", KINDS)
+def test_quadform_off_its_tiles_matches_plain_and_repeats(kind, d, cuda):
+    """M and N off the kernel's 64-row and 128-column tiles; d = 1, one
+    chunk of 32 features (18) and two (33); all-padded alpha."""
+    gen = torch.Generator().manual_seed(11 + d)
+    ops.reset_launch_counts()
+    shapes = [(63, 65), (65, 129), (130, 127), (1, 200), (200, 1)]
+    for M, N in shapes:
+        X, Y = _randn(gen, 3, M, d, dev=cuda), _randn(gen, 3, N, d, dev=cuda)
+        a, b = _randn(gen, 3, M, dev=cuda), _randn(gen, 3, N, dev=cuda)
+        for alpha in (a, torch.zeros_like(a)):
+            got = quadform.quadform(X, Y, alpha, b, kind=kind, gamma=0.05)
+            _close(got, ref.quadform_ref(X, Y, alpha, b, kind=kind,
+                                         gamma=0.05),
+                   f"quadform {kind} M={M} N={N} d={d}")
+            assert torch.equal(got, quadform.quadform(
+                X, Y, alpha, b, kind=kind, gamma=0.05))
+    assert ops.LAUNCH_COUNTS["quadform"] == 4 * len(shapes)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,13 @@ for (ragged non-causal, S != L).
 
 Tolerances: the JAX package's own, rtol = atol = 2e-5 in fp32 and
 3e-2 in bf16 (tests/test_kernels_pallas.py).
+
+The tensor-core redesign of the kernel (tools/flash_tc/flash_wgmma.cu)
+runs both products on bf16 tensor cores and keeps float32 precision by
+splitting into three bf16 parts (``ref.split_bf16``): the split's own
+tests, and a plain emulation of that kernel's arithmetic (the six cross
+terms of q.k and p.v, the online softmax over 64-key tiles) held
+against the Pallas kernel in interpret mode.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +137,109 @@ def test_flash_wrapper_refuses_what_it_cannot_take():
     np.testing.assert_array_equal(
         flash.flash_attention(q, k, v).numpy(),
         ref.flash_ref(q, k, v, scale=64 ** -0.5).numpy())
+
+
+def test_split_bf16_holds_float32_values():
+    """Within 2^-24 relative wherever lo stays a normal number (|x| above
+    2^-110; below it the float32 range itself cuts lo's bits)."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        rng.normal(size=4096), rng.uniform(0.0, 1.0, size=4096),
+        rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, size=4096),
+    ]).astype(np.float32)
+    x = torch.as_tensor(x[np.abs(x) >= 2.0 ** -110])
+    assert x.numel() > 12000
+    hi, mid, lo = ref.split_bf16(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    err = (total - x.double()).abs()
+    assert bool((err <= 2.0 ** -24 * x.double().abs()).all()), \
+        float((err / x.double().abs().clamp_min(1e-300)).max())
+    # the parts fall off by a bf16 significand each
+    assert bool((mid.double().abs() <= 2.0 ** -8 * hi.double().abs()).all())
+    assert bool((lo.double().abs() <= 2.0 ** -8 * mid.double().abs()).all())
+
+
+def test_split_bf16_of_a_bf16_value_is_the_value():
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=8192).astype(np.float32)) \
+        .to(torch.bfloat16).float()
+    hi, mid, lo = ref.split_bf16(x)
+    assert torch.equal(hi.float(), x)
+    assert not bool(mid.float().any()) and not bool(lo.float().any())
+
+
+#: the cross terms above 2^-24 of a product of two three-part splits, in
+#: the kernel's order, smallest first (tools/flash_tc/flash_wgmma.cu:
+#: term_a, term_b)
+TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _split_matmul(a, b):
+    """a @ b with both split into three bf16 parts and the six cross
+    terms summed in float32, smallest first: what the kernel's MMAs
+    compute."""
+    pa, pb = ref.split_bf16(a), ref.split_bf16(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i, j in TERMS:
+        out = out + pa[i].float() @ pb[j].float()
+    return out
+
+
+def _emulate_kernel(q, k, v, *, causal, window, block_k=64):
+    """The kernel's arithmetic in plain float32 torch ops: scores by the
+    six-term split over two halves of hd, added, scaled after the dot,
+    masked to -1e30 (-inf past L); the online softmax over key tiles;
+    each tile's p split into three parts against v's and folded into
+    acc; acc / max(l, 1e-30)."""
+    q, k, v = (torch.as_tensor(a) for a in (q, k, v))
+    BH, S, hd = q.shape
+    L = k.shape[1]
+    kt = k.transpose(1, 2)
+    h = hd // 2
+    s_all = (_split_matmul(q[..., :h], kt[:, :h])
+             + _split_matmul(q[..., h:], kt[:, h:])) * hd ** -0.5
+    i = torch.arange(S)[:, None]
+    m = torch.full((BH, S, 1), -1e30)
+    l = torch.zeros((BH, S, 1))
+    acc = torch.zeros((BH, S, hd))
+    for k0 in range(0, L, block_k):
+        j = torch.arange(k0, min(k0 + block_k, L))[None, :]
+        s = s_all[:, :, k0:k0 + block_k]
+        hide = torch.zeros((S, j.shape[1]), dtype=torch.bool)
+        if causal:
+            hide |= j > i
+        if window > 0:
+            hide |= j <= i - window
+        s = torch.where(hide[None], torch.full_like(s, -1e30), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _split_matmul(p, v[:, k0:k0 + block_k])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).numpy()
+
+
+@pytest.mark.parametrize("S,hd,causal,window", [
+    (128, 64, True, 0), (256, 128, True, 0), (256, 64, False, 0),
+    (256, 64, True, 64), (384, 128, False, 100)])
+def test_split_emulation_matches_pallas(S, hd, causal, window):
+    q, k, v = _qkv(np.random.default_rng(S + hd + window), 2, S, hd)
+    got = _emulate_kernel(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(
+        got, _pallas(q, k, v, 128, 128, causal=causal, window=window),
+        rtol=TOL, atol=TOL)
+
+
+def test_split_emulation_is_one_pass_for_bf16_inputs():
+    """On bf16 inputs every term but hi.hi of q.k, and of p.v every term
+    against v's mid and lo parts, is zero: the float32 kernel on widened
+    bf16 inputs runs the bf16 kernel's passes plus exact zeros."""
+    rng = np.random.default_rng(5)
+    q, k = (torch.as_tensor(a).to(torch.bfloat16).float()
+            for a in _qkv(rng, 2, 64, 64)[:2])
+    pq, pk = ref.split_bf16(q), ref.split_bf16(k.transpose(1, 2))
+    for i, j in TERMS:
+        if (i, j) != (0, 0):
+            assert not bool((pq[i].float() @ pk[j].float()).any())

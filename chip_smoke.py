@@ -7,10 +7,14 @@ Phases, one JSON line each; every check asserts, and any failure exits
 non-zero with no result line:
 
 1. ``env``: the card, its power limit, torch / CUDA versions, the TF32
-   flags, and the time to build the CUDA kernels from ``csrc/``.
+   flags, the time to build the CUDA kernels from ``csrc/``, and the
+   launch floor: the time of one PyTorch kernel on one element.
 2. one line per kernel: each hand-written kernel against its plain
    PyTorch version on the card, at the engine's shapes and at edge
-   shapes (ragged budgets, budget 1, all-padded coefficients), under
+   shapes (ragged budgets, budget 1, all-padded coefficients, every
+   chunk and cluster edge of ``sv_predict`` and the RFF
+   ``primal_step``, whose rows must also come out bitwise at every
+   batch of ``BATCHES``; ``sv_predict`` timed at B = 8 too), under
    the parity tolerance of tests/conftest.py:42-43 (``rff``, whose
    outputs are bounded by sqrt(2/D), to a thousandth of that bound,
    with a bf16-projection control that must miss it; ``flash`` and
@@ -128,13 +132,28 @@ LM_PROMPTS = (1500, 1200, 700, 333, 1024, 900, 512, 64)
 FLASH_MAIN = (LM_BATCH * 16, 1500, 128)    # (B H, S, hd) of the first batch
 
 
-# A kernel redesigned in register tiles, and what its first version took
-# at the same shape (this script, on an H100 80GB HBM3 at 700 W): the
-# earlier values its line reports.
+# A kernel redesigned for Hopper, and what its earlier design took at the
+# same shape (this script, on an H100 80GB HBM3 at 700 W): the earlier
+# values its line reports.
 EARLIER = {
     "quadform": {"design": "one column and 32 rows a thread, a shared-"
                  "memory load per FMA", "ms": 0.4035, "device_ms": 0.3991},
+    "sv_predict": {"design": "one block of 128 threads per row, each thread "
+                   "reading its slots' 18-float rows 72 bytes apart from "
+                   "device memory, then a 7-step barrier tree",
+                   "ms": 0.02142848014831543,
+                   "device_ms": 0.011023800000000049},
+    "primal_step_rff": {"design": "one block of 256 threads per learner, W "
+                        "rows read 72 bytes apart from device memory, "
+                        "every feature computed twice, a barrier tree and "
+                        "thread 0 alone on the loss",
+                        "ms": 0.061098880767822265,
+                        "device_ms": 0.01649204000000005},
 }
+
+# row counts at which each row of sv_predict and primal_step must come
+# out bitwise as in a 64-row call
+BATCHES = (1, 2, 3, 4, 8, 16, 32, 33, 64)
 
 
 def emit(obj) -> None:
@@ -158,7 +177,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
     ``iters`` -- what one call costs the main path, host enqueue
     included (for a launch-bound kernel the host sets it);
     ``device_ms``: the summed durations of the CUDA kernels one call
-    launched, from ``torch.profiler``."""
+    launched, from ``torch.profiler``: each kernel name's mean duration
+    times the launches of that name a call makes.  The profiler can lose
+    an event or two at a window's edge (seen for 3 us kernels): a name
+    whose count is within two of a whole number of launches per call
+    keeps its mean; a window that lost more is profiled again, up to
+    three times, and then raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -171,15 +195,28 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / iters
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    if dev_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return {"ms": ms, "device_ms": dev_us / 1e3 / iters}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name].append(e.time_range.elapsed_us())
+        per_call = {name: round(len(us) / iters)
+                    for name, us in by_name.items()}
+        if by_name and all(per_call[name] > 0 and
+                           abs(len(us) - per_call[name] * iters) <= 2
+                           for name, us in by_name.items()):
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded "
+                           f"{sum(map(len, by_name.values()))} kernels "
+                           f"for {iters} calls")
+    device_us = sum(per_call[name] * sum(us) / len(us)
+                    for name, us in by_name.items())
+    return {"ms": ms, "device_ms": device_us / 1e3}
 
 
 def close(got, want, label: str, rtol: float = PARITY_RTOL,
@@ -230,10 +267,31 @@ def tf32(on: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
+def rows_independent_of_batch(fn, label: str) -> None:
+    """``fn(B)`` -> a tensor (or tuple of tensors) of B rows, computed on
+    the first B rows of fixed inputs: each row must equal the 64-row
+    call's bitwise at every B of ``BATCHES``, and a repeat must equal
+    the first call."""
+    full = fn(max(BATCHES))
+    full = full if isinstance(full, tuple) else (full,)
+    again = fn(max(BATCHES))
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(full, again)), \
+        f"{label}: a repeat differs"
+    for B in BATCHES:
+        got = fn(B)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, f in zip(got, full):
+            assert torch.equal(g, f[:B]), f"{label}: rows differ at B={B}"
+
+
 def check_sv_predict(fused, ref, dev, gen):
     kinds = ["gaussian", "linear", "poly"]
+    # the engine's shape, then every chunk and cluster edge of the
+    # geometry (128 slots a block, 8 blocks a cluster, 128-slot tiles)
     cases = [(32, 1024), (32, 1), (32, 127), (32, 128), (32, 129),
-             (32, 1000), (3, 130)]
+             (32, 1000), (3, 130), (5, 1023), (5, 1025), (5, 4096),
+             (5, 4097)]
     errs = {}
     for kind in kinds:
         for B, N in cases:
@@ -253,6 +311,13 @@ def check_sv_predict(fused, ref, dev, gen):
                                    gamma=GAMMA)
             assert torch.equal(one[0], fused.sv_predict(
                 X, SV, A, kind=kind, gamma=GAMMA)[1]), "row-bitwise"
+    for N in (BUDGET, BUDGET + 1):
+        X = torch.randn(max(BATCHES), D_IN, generator=gen).to(dev)
+        SV = torch.randn(max(BATCHES), N, D_IN, generator=gen).to(dev)
+        A = torch.randn(max(BATCHES), N, generator=gen).to(dev)
+        rows_independent_of_batch(
+            lambda B: fused.sv_predict(X[:B], SV[:B], A[:B], kind="gaussian",
+                                       gamma=GAMMA), f"sv_predict N={N}")
     B, N = 32, 1024
     X = torch.randn(B, D_IN, generator=gen).to(dev)
     SV = torch.randn(B, N, D_IN, generator=gen).to(dev)
@@ -260,9 +325,12 @@ def check_sv_predict(fused, ref, dev, gen):
     kw = dict(kind="gaussian", gamma=GAMMA)
     ms = time_ms(lambda: fused.sv_predict(X, SV, A, **kw))
     plain = time_ms(lambda: ref.sv_predict_ref(X, SV, A, **kw))
+    # serving's commonest bucket
+    b8 = time_ms(lambda: fused.sv_predict(X[:8], SV[:8], A[:8], **kw))
     nbytes = 4 * (B * D_IN + B * N * D_IN + B * N + B)
     flops = B * N * (4 * D_IN + 8)      # cross, yy, the gaussian, a * k
-    return errs, ms, plain, bound_ms(nbytes, flops)
+    return errs, dict(ms, ms_b8=b8["ms"], device_ms_b8=b8["device_ms"]), \
+        plain, bound_ms(nbytes, flops)
 
 
 def check_quadform(qf, ref, dev, gen):
@@ -317,8 +385,12 @@ def _step_args(B, D, d, featurize, dev, gen):
 
 def check_primal_step(fused, ref, dev, gen, featurize: bool):
     if featurize:
+        # the engine's shape, then every slice and cluster edge of the
+        # geometry (256 features a block, 8 blocks a cluster)
         cases = [(32, 2048, D_IN), (1, 1, D_IN), (3, 127, D_IN),
-                 (3, 129, D_IN), (129, 130, 7), (127, 256, D_IN)]
+                 (3, 129, D_IN), (129, 130, 7), (127, 256, D_IN),
+                 (5, 2049, D_IN), (5, 4096, D_IN), (5, 4097, D_IN),
+                 (3, 2048, 33)]
         main = (32, 2048)
     else:
         cases = [(1024, D_IN, D_IN), (1, 1, 1), (127, D_IN, D_IN),
@@ -336,6 +408,12 @@ def check_primal_step(fused, ref, dev, gen, featurize: bool):
                       for g, w, name in zip(got, want, ["w", "b", "ell", "yhat"]))
             if (B, D) == main:
                 errs[loss] = err
+    if featurize:
+        for D in (N_FEATURES, N_FEATURES + 1):
+            args, kw = _step_args(max(BATCHES), D, D_IN, True, dev, gen)
+            rows_independent_of_batch(
+                lambda B: fused.primal_step(*(a[:B] for a in args), **kw),
+                f"primal_step rff D={D}")
     B, D = main
     args, kw = _step_args(B, D, D_IN, featurize, dev, gen)
     ms = time_ms(lambda: fused.primal_step(*args, loss="hinge", **kw))
@@ -613,6 +691,17 @@ def _device_seconds(prof) -> collections.Counter:
     return by_kernel
 
 
+def _port_seconds(by_kernel) -> dict:
+    """The device seconds of the port's own kernels (csrc/*.cu, all in
+    an anonymous namespace), by kernel function name."""
+    out: collections.Counter = collections.Counter()
+    for name, secs in by_kernel.items():
+        name = name.removeprefix("void ")
+        if name.startswith("(anonymous namespace)::"):
+            out[name.split("::")[1].split("(")[0].split("<")[0]] += secs
+    return dict(out)
+
+
 def run_e2e(ops, totals, runs):
     from torch.profiler import ProfilerActivity, profile
 
@@ -686,7 +775,8 @@ def run_e2e(ops, totals, runs):
               # device busy share: kernel time of the (profiled) repeat
               # over the wall time of the unprofiled kernel run
               "device_s": device_s, "device_busy_share": device_s / secs,
-              "top_kernels_s": dict(by_kernel.most_common(5)), **check})
+              "top_kernels_s": dict(by_kernel.most_common(5)),
+              "port_kernels_s": _port_seconds(by_kernel), **check})
 
 
 # ---------------------------------------------------------------------------
@@ -944,6 +1034,7 @@ def run_serving(ops, totals, runs):
               "max_memory_allocated": peak,
               "device_s": device_s, "device_busy_share": device_s / secs,
               "top_kernels_s": dict(by_kernel.most_common(5)),
+              "port_kernels_s": _port_seconds(by_kernel),
               "predictions_max_abs_err_vs_reference": float(
                   np.max(np.abs(yhat - ref_yhat))),
               "predict_batch_vs_plain_max_abs_err": rows_err,
@@ -1325,11 +1416,16 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text(
         _build.BUILD_INFO.get("log", "(cached build)"))
+    # the launch floor: one PyTorch kernel on one element
+    one = torch.zeros(1, device=dev)
+    floor = time_ms(lambda: one.add_(1.0))
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "precision": device_mod.precision_flags(),
-          "build_s": build_s, "build_cached": _build.BUILD_INFO["cached"]})
+          "build_s": build_s, "build_cached": _build.BUILD_INFO["cached"],
+          "launch_floor_ms": floor["ms"],
+          "launch_floor_device_ms": floor["device_ms"]})
 
     gen = torch.Generator().manual_seed(0)
     results = {}
@@ -1350,7 +1446,7 @@ def main() -> int:
                              device_ms=ms["device_ms"],
                              plain_device_ms=plain["device_ms"],
                              **{k: v for k, v in ms.items()
-                                if k.endswith("_m1") or "library" in k})
+                                if k not in ("ms", "device_ms")})
         emit({"phase": "kernel", "name": name, "max_abs_err": errs,
               **{k: v for k, v in results[name].items() if k != "errs"},
               **({"earlier": EARLIER[name]} if name in EARLIER else {})})

@@ -49,16 +49,18 @@ _F = ctypes.c_float
 
 #: C signature of every entry point (all return a cudaError_t as int).
 SIGNATURES = {
-    # X, SV, A, out, B, N, d, kind, gamma, degree, coef0, stream
-    "repro_sv_predict": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _F, _VP],
+    # X, SV, A, out, B, N, d, kind, gamma, degree, coef0, cluster, chunk,
+    # stream
+    "repro_sv_predict": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _F, _I,
+                         _I, _VP],
     # X, Y, alpha, beta, partial, out, P, M, N, d, kind, gamma, degree,
     # coef0, stream
     "repro_quadform": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
                        _I, _F, _VP],
     # X, y, w, b, W, bias, w_new, b_new, ell, yhat, B, d, D, featurize,
-    # scale, loss, eta, decay, stream
+    # scale, loss, eta, decay, cluster, chunk, stream
     "repro_primal_step": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                          _I, _I, _I, _I, _F, _I, _F, _F, _VP],
+                          _I, _I, _I, _I, _F, _I, _F, _F, _I, _I, _VP],
     # X, W, b, Z, M, D, d, scale, stream
     "repro_rff": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
     # X, Y, K, M, N, d, kind, gamma, degree, coef0, stream

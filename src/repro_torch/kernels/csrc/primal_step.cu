@@ -7,45 +7,231 @@
 // (bodies _rff_step_kernel, _linear_step_kernel, _primal_step_math).
 //
 // Bound: bytes.  At the engine's RFF shape (B = 32, D = 2048, d = 18)
-// it moves ~0.7 MB, well under a microsecond of memory time: the
-// launch dominates.
+// it reads x, y, w, b (B (d + D + 2) floats) and W, bias (D (d + 1),
+// read once: every row shares them) and writes w', b', ell, yhat
+// (B (D + 3)): 684,416 bytes, 0.000204 ms at 3.35 TB/s.  The launch and
+// the latency of a few dependent steps are what a design has to beat:
+// the first design (one block of 256 threads per learner, W rows read
+// 72 bytes apart from device memory, every feature computed twice, a
+// barrier tree and thread 0 alone on the loss) took 16 us.
 //
-// Design: one block per learner row.  The TPU kernel holds a (bm, D)
-// feature slab in VMEM; here nothing of size D is held in shared
-// memory.  Pass 1 strides over D (thread t takes features t,
-// t + blockDim, ...), computes each z_j on the fly (a d-long dot and a
-// cos) and accumulates w_j z_j; a fixed-order block reduce gives yhat.
-// Thread 0 forms the loss and gradient.  Pass 2 recomputes z_j and
-// writes w'.  The block size depends on D only, so a row's floats never
-// depend on B.
+// RFF geometry (kernels/fused.py::primal_step_geometry, checked here):
+// learner i gets a thread-block cluster of C = min(8, ceil(D / 256))
+// blocks of 256 threads; block r owns the features [r slice,
+// min(D, (r + 1) slice)), slice = ceil(D / C), never empty: 8 blocks of
+// 256 features at D = 2048, 256 blocks at B = 32.  C and slice depend on
+// D alone, the staging tile on D and d.
+//
+// Each feature once: a block stages its slice of W (contiguous, slice x
+// d floats; every learner reads the same W, which stays in L2) into
+// shared memory, by thread 0 (common.cuh, "Staging": the run's 16-byte
+// aligned body as one TMA bulk copy, its unaligned ends as 4-byte
+// cp.async copies, counted on one mbarrier; at D = 2048, d = 18 every
+// slice is aligned), in tiles of `tile` features: stage, wait, compute,
+// repeat, one buffer.  The entry point picks the tile from this file's
+// shared-memory layout: up to 256 features, halved until it fits a
+// block, so the engine's shapes (a slice of at most 256 features at
+// d = 18) take one tile.  Rows keep the stride d: at d = 18 the float2
+// reads hit 16 distinct banks a half-warp.  Thread t computes the
+// features t, t + tile, ... of the slice: the d-dot in k order, one
+// cosf, and keeps z and w in shared memory for the update; w and bias
+// come as coalesced loads issued before the wait for the tile.
+//
+// Reduction and broadcast in one exchange (a learner's floats depend on
+// D and d only, never on B):
+//   1. thread t adds w_j z_j over its features in order; each warp sums
+//      its threads by a fixed shuffle tree (offsets 16, 8, 4, 2, 1);
+//      thread 0 adds the warps' sums in warp order;
+//   2. thread 0 of every block r writes that sum into parts[r] of every
+//      block of the cluster (itself included) through distributed shared
+//      memory (st.async, counted on the receiver's mbarrier), after a
+//      split cluster barrier (arrive at the start, wait before the first
+//      remote write: every block has started, every mbarrier is ready);
+//   3. every thread of every block waits for its C sums and adds
+//      parts[0..C-1] in rank order: each block holds the same yhat
+//      bitwise and forms the loss and g itself, so g needs no second
+//      exchange; rank 0 writes b', ell and yhat;
+//   4. the block writes w' over its slice as 16-byte stores (4-byte at
+//      the unaligned ends), w' = fmaf(-eta g, z, decay w) in every path.
+// No block reads another's memory after the exchange, and none exits
+// before its C sums have landed, so no closing barrier is needed.  No
+// float atomics, one launch.
+//
+// Linear variant (D = d; B = 1024 at the engine, a block per learner
+// already): the first design, kept: one block of a power of two >= 32
+// threads per learner, a fixed-order block tree for yhat.
+//
+// Registers and shared memory (ptxas -v, sm_90a, from the build log the
+// kernels' build writes beside the library, build/<hash>/build.log, and
+// chip_smoke.py saves as chip_smoke_build.log; on an H100): the RFF kernel
+// 63 registers, 80 bytes of static shared memory a block, 32 bytes of
+// stack (cosf's path for huge arguments), no spills, and 20,576 bytes of
+// dynamic shared memory at D = 2048, d = 18; the linear kernel 28
+// registers and 1,040 bytes of static shared memory.
+#include <algorithm>
+
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kRffThreads = 256;      // an RFF block's threads; a tile's most
+constexpr int kMaxCluster = 8;        // the portable cluster size
+constexpr int kMaxLinearThreads = 256;
+constexpr int kSmemLimit = 232448;    // shared memory bytes a block can use
 
 enum Loss { LOSS_HINGE = 0, LOSS_SQUARED = 1 };
 
-__device__ __forceinline__ float feature(int j, const float* xs, int d,
-                                         const float* __restrict__ W,
-                                         const float* __restrict__ bias,
-                                         int featurize, float scale) {
-  if (!featurize) return xs[j];
-  const float* wj = W + (size_t)j * d;
-  float proj = 0.0f;
-  for (int k = 0; k < d; ++k) proj += xs[k] * wj[k];
-  return scale * cosf(proj + bias[j]);
+// the loss and its gradient at yhat, as _primal_step_math
+__device__ __forceinline__ void loss_grad(int loss, float yhat, float y,
+                                          float& l, float& g) {
+  if (loss == LOSS_HINGE) {
+    l = fmaxf(0.0f, 1.0f - y * yhat);
+    g = l > 0.0f ? -y : 0.0f;
+  } else {
+    const float r = yhat - y;
+    l = 0.5f * r * r;
+    g = r;
+  }
 }
 
-__global__ void primal_step_kernel(
+// the NORMA update of one weight, one rounding order in every path
+__device__ __forceinline__ float norma(float decay, float w, float step,
+                                       float z) {
+  return fmaf(-step, z, decay * w);
+}
+
+// bytes of dynamic shared memory for the RFF block: the example (d), w
+// and z of the slice, and one staged W tile
+long long rff_smem_bytes(int d, int slice, int tile) {
+  return 4LL * (round4(d) + 2LL * round4(slice) + staged_floats(tile * d));
+}
+
+__global__ void __launch_bounds__(kRffThreads)
+    rff_step_kernel(const float* __restrict__ X, const float* __restrict__ Yl,
+                    const float* __restrict__ w, const float* __restrict__ b,
+                    const float* __restrict__ W,
+                    const float* __restrict__ bias,
+                    float* __restrict__ w_new, float* __restrict__ b_new,
+                    float* __restrict__ ell_out, float* __restrict__ yhat_out,
+                    int d, int D, int slice, int tile, float scale, int loss,
+                    float eta, float decay) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kRffThreads / 32];
+  __shared__ float parts[kMaxCluster];
+  __shared__ __align__(8) uint64_t full;      // a W tile's copies
+  __shared__ __align__(8) uint64_t sums;      // the C block sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int i = blockIdx.x / C;
+  const int t = threadIdx.x;
+  const int j0 = min(D, rank * slice);
+  const int n = min(D, j0 + slice) - j0;
+  float* xs = smem;
+  float* ws = xs + round4(d);
+  float* zs = ws + round4(slice);
+  float* Ws = zs + round4(slice);
+  const float* Wb = W + (size_t)j0 * d;
+  const float* wi = w + (size_t)i * D + j0;
+
+  if (t == 0) {
+    mbar_init(&full, 1);
+    mbar_init(&sums, 1);
+    mbar_init_fence();
+  }
+  // by thread 0 (common.cuh: "Staging")
+  auto stage = [&](int first) {
+    const Run runs[1] = {
+        run_of(Ws, Wb + (size_t)first * d, min(tile, n - first) * d)};
+    stage_runs(runs, &full);
+  };
+  // w and bias of the thread's feature in the tile from `first`, loaded
+  // before the wait for the tile
+  float wv = 0.0f, bv = 0.0f;
+  auto load = [&](int first) {
+    if (t < min(tile, n - first)) {
+      wv = wi[first + t];
+      bv = bias[j0 + first + t];
+    }
+  };
+
+  if (t == 0 && n > 0) stage(0);
+  cluster_arrive_relaxed();
+  for (int k = t; k < d; k += kRffThreads) xs[k] = X[(size_t)i * d + k];
+  const float y = Yl[i], bi = b[i];
+  load(0);
+  __syncthreads();   // the example; the barriers initialized
+
+  float acc = 0.0f;
+  for (int first = 0, s = 0; first < n; first += tile, ++s) {
+    mbar_wait(&full, s & 1);
+    if (t < min(tile, n - first)) {
+      const int e = first + t;
+      const float* row = Ws + (size_t)t * d + align_of(Wb + (size_t)first * d);
+      float proj, unused;
+      row_dots(xs, row, d, proj, unused);
+      const float z = scale * cosf(proj + bv);
+      ws[e] = wv;
+      zs[e] = z;
+      acc = fmaf(wv, z, acc);
+    }
+    if (first + tile < n) {
+      __syncthreads();   // every thread is done with the tile
+      if (t == 0) stage(first + tile);
+      load(first + tile);
+    }
+  }
+
+  // (its barrier also makes every thread's w and z visible to pass 2)
+  const float total = block_sum_ordered(acc, red);
+  cluster_wait();   // every block has started; every barrier is ready
+  if (t == 0) {
+    mbar_arrive_expect(&sums, 4u * C);
+    for (int r = 0; r < C; ++r)
+      st_async(cluster_addr(&parts[rank], r), total, cluster_addr(&sums, r));
+  }
+  mbar_wait(&sums, 0);
+  float dot = parts[0];
+  for (int r = 1; r < C; ++r) dot += parts[r];
+  const float yhat = dot + bi;
+  float l, g;
+  loss_grad(loss, yhat, y, l, g);
+  if (rank == 0 && t == 0) {
+    ell_out[i] = l;
+    yhat_out[i] = yhat;
+    b_new[i] = bi - eta * g;
+  }
+  const float step = eta * g;
+  float* wo = w_new + (size_t)i * D + j0;
+  const int head = min(n, (4 - align_of(wo)) & 3);
+  const int vecs = (n - head) >> 2;
+  const int tail = head + 4 * vecs;
+  if (t < head) wo[t] = norma(decay, ws[t], step, zs[t]);
+  for (int v = t; v < vecs; v += kRffThreads) {
+    const int e = head + 4 * v;
+    float4 o;
+    o.x = norma(decay, ws[e], step, zs[e]);
+    o.y = norma(decay, ws[e + 1], step, zs[e + 1]);
+    o.z = norma(decay, ws[e + 2], step, zs[e + 2]);
+    o.w = norma(decay, ws[e + 3], step, zs[e + 3]);
+    *reinterpret_cast<float4*>(wo + e) = o;
+  }
+  if (t < n - tail)
+    wo[tail + t] = norma(decay, ws[tail + t], step, zs[tail + t]);
+}
+
+__global__ void linear_step_kernel(
     const float* __restrict__ X, const float* __restrict__ Yl,
     const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ W, const float* __restrict__ bias,
     float* __restrict__ w_new, float* __restrict__ b_new,
-    float* __restrict__ ell_out, float* __restrict__ yhat_out, int d, int D,
-    int featurize, float scale, int loss, float eta, float decay) {
-  extern __shared__ float xs[];   // the learner's example, d floats
-  __shared__ float red[kMaxThreads];
+    float* __restrict__ ell_out, float* __restrict__ yhat_out, int D,
+    float eta, float decay, int loss) {
+  extern __shared__ float xs[];   // the learner's example, D floats
+  __shared__ float red[kMaxLinearThreads];
   __shared__ float g_s;
   const int i = blockIdx.x;
   const int t = threadIdx.x;
@@ -53,26 +239,16 @@ __global__ void primal_step_kernel(
   const float* wi = w + (size_t)i * D;
   float* wo = w_new + (size_t)i * D;
 
-  for (int k = t; k < d; k += nt) xs[k] = X[(size_t)i * d + k];
+  for (int k = t; k < D; k += nt) xs[k] = X[(size_t)i * D + k];
   __syncthreads();
 
   float acc = 0.0f;
-  for (int j = t; j < D; j += nt) {
-    acc += wi[j] * feature(j, xs, d, W, bias, featurize, scale);
-  }
+  for (int j = t; j < D; j += nt) acc += wi[j] * xs[j];
   const float dot = block_sum(acc, red);
   if (t == 0) {
     const float yhat = dot + b[i];
-    const float y = Yl[i];
     float l, g;
-    if (loss == LOSS_HINGE) {
-      l = fmaxf(0.0f, 1.0f - y * yhat);
-      g = l > 0.0f ? -y : 0.0f;
-    } else {
-      const float r = yhat - y;
-      l = 0.5f * r * r;
-      g = r;
-    }
+    loss_grad(loss, yhat, Yl[i], l, g);
     ell_out[i] = l;
     yhat_out[i] = yhat;
     b_new[i] = b[i] - eta * g;
@@ -80,27 +256,84 @@ __global__ void primal_step_kernel(
   }
   __syncthreads();
   const float step = eta * g_s;
-  for (int j = t; j < D; j += nt) {
-    wo[j] = decay * wi[j] - step * feature(j, xs, d, W, bias, featurize, scale);
+  for (int j = t; j < D; j += nt) wo[j] = norma(decay, wi[j], step, xs[j]);
+}
+
+cudaError_t launch_rff(int B, int C, int smem, cudaStream_t stream,
+                       const float* X, const float* Yl, const float* w,
+                       const float* b, const float* W, const float* bias,
+                       float* w_new, float* b_new, float* ell, float* yhat,
+                       int d, int D, int slice, int tile, float scale,
+                       int loss, float eta, float decay) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rff_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)C);
+  cfg.blockDim = dim3(kRffThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, rff_step_kernel, X, Yl, w, b, W, bias,
+                            w_new, b_new, ell, yhat, d, D, slice, tile, scale,
+                            loss, eta, decay);
 }
 
 }  // namespace
 
+// cluster, chunk: kernels/fused.py::primal_step_geometry(D, featurize).
+// RFF: the cluster and its slice of the features, the tile this file's to
+// pick; linear: cluster 1, chunk D, and a block of the smallest power of
+// two from 32 to 256 threads that covers D.  A geometry or a width this
+// kernel cannot run returns cudaErrorInvalidValue and launches nothing.
 extern "C" int repro_primal_step(const float* X, const float* Yl,
                                  const float* w, const float* b,
                                  const float* W, const float* bias,
                                  float* w_new, float* b_new, float* ell,
                                  float* yhat, int B, int d, int D,
                                  int featurize, float scale, int loss,
-                                 float eta, float decay, void* stream) {
-  if (B > 0) {
-    int threads = 32;   // a power of two (block_sum), enough to cover D
-    while (threads < D && threads < kMaxThreads) threads *= 2;
-    primal_step_kernel<<<B, threads, d * sizeof(float),
-                         (cudaStream_t)stream>>>(
-        X, Yl, w, b, W, bias, w_new, b_new, ell, yhat, d, D, featurize,
-        scale, loss, eta, decay);
+                                 float eta, float decay, int cluster,
+                                 int chunk, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (loss != LOSS_HINGE && loss != LOSS_SQUARED)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!featurize) {
+    if (D != d || D < 1 || cluster != 1 || chunk != D || 4LL * D > kSmemLimit)
+      return (int)cudaErrorInvalidValue;
+    int threads = 32;
+    while (threads < D && threads < kMaxLinearThreads) threads *= 2;
+    if (4 * D > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          linear_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          4 * D);
+      if (err != cudaSuccess) return (int)err;
+    }
+    linear_step_kernel<<<B, threads, D * sizeof(float), st>>>(
+        X, Yl, w, b, w_new, b_new, ell, yhat, D, eta, decay, loss);
+    return (int)cudaGetLastError();
   }
+  const bool covers = D == 0 ? cluster == 1
+                             : (long long)(cluster - 1) * chunk < D &&
+                                   (long long)cluster * chunk >= D;
+  if (d < 1 || D < 0 || cluster < 1 || cluster > kMaxCluster || chunk < 0 ||
+      !covers)
+    return (int)cudaErrorInvalidValue;
+  int tile = std::max(1, std::min(kRffThreads, chunk));
+  while (tile > 1 && rff_smem_bytes(d, chunk, tile) > kSmemLimit) tile /= 2;
+  const long long smem = rff_smem_bytes(d, chunk, tile);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_rff(B, cluster, (int)smem, st, X, Yl, w, b, W, bias, w_new,
+                 b_new, ell, yhat, d, D, chunk, tile, scale, loss, eta, decay);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,21 @@ outputs with ``torch.empty``, launches on the current stream and
 counts the launch (``_build.LAUNCH_COUNTS``).  A CPU tensor goes to
 the plain version in ``ref.py``; a CUDA tensor goes to the kernel, or
 the wrapper raises.
+
+How a call splits its rows is computed here, so that the CPU tests
+reach the arithmetic of the ragged edge: :func:`sv_predict_geometry`
+and :func:`primal_step_geometry` give each row a thread-block cluster
+of ``cluster`` blocks, block r owning the items [r chunk, min(n, (r + 1)
+chunk)) of the row (budget slots, or RFF features).  ``cluster`` and
+``chunk`` depend on the budget N or the feature count D alone, never on
+the number of rows, so a row's floats never depend on the batch around
+it.  The C entry points check the split, lay out their shared memory
+themselves and refuse what does not fit a block.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +35,43 @@ from . import _build, ref
 
 KINDS = {"gaussian": 0, "linear": 1, "poly": 2}
 LOSSES = {"hinge": 0, "squared": 1}
+
+SV_SLOTS = 128          # budget slots a block aims at (its threads)
+RFF_FEATURES = 256      # RFF features a block aims at (its threads)
+MAX_CLUSTER = 8         # the portable thread-block cluster size
+
+
+class Geometry(NamedTuple):
+    """Each row's split: ``cluster`` blocks, block r owning the items
+    [r chunk, min(n, (r + 1) chunk))."""
+    cluster: int
+    chunk: int
+
+
+def _split(n: int, per_block: int) -> Geometry:
+    """At most MAX_CLUSTER blocks of about ``per_block`` items for n
+    items, ``chunk = ceil(n / cluster)``; no block is empty."""
+    cluster = max(1, min(MAX_CLUSTER, -(-n // per_block)))
+    return Geometry(cluster, -(-n // cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def sv_predict_geometry(N: int, d: int) -> Geometry:
+    """The cluster split of a budget of N slots of d features: C =
+    min(8, ceil(N / 128)) blocks, chunk = ceil(N / C)."""
+    if N < 0 or d < 1:
+        raise ValueError(f"sv_predict: budget {N}, dimension {d}")
+    return _split(N, SV_SLOTS)
+
+
+@functools.lru_cache(maxsize=None)
+def primal_step_geometry(D: int, featurize: bool) -> Geometry:
+    """The split of a primal learner's D features.  RFF: C = min(8,
+    ceil(D / 256)) blocks, chunk = ceil(D / C).  Linear: one block per
+    learner (the first design, kept)."""
+    if D < 0 or (not featurize and D < 1):
+        raise ValueError(f"primal_step: D {D}")
+    return _split(D, RFF_FEATURES) if featurize else Geometry(1, D)
 
 
 def sv_predict(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
@@ -40,12 +90,13 @@ def sv_predict(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
     if X.device.type != "cuda":
         raise ValueError(f"sv_predict: unsupported device {X.device}")
     _build.check_operands("sv_predict", X.device, X=X, SV=SV, A=A)
+    geo = sv_predict_geometry(N, d)
     out = torch.empty((B,), dtype=torch.float32, device=X.device)
     _build.launch(
         "sv_predict", "repro_sv_predict", X.device,
         _build.ptr(X), _build.ptr(SV), _build.ptr(A), _build.ptr(out),
         B, N, d, KINDS[kind], float(gamma), int(degree), float(coef0),
-        _build.stream_of(X))
+        *geo, _build.stream_of(X))
     return out
 
 
@@ -77,6 +128,7 @@ def primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
     if featurize:
         operands.update(W=W, bias=bias)
     _build.check_operands("primal_step", X.device, **operands)
+    geo = primal_step_geometry(D, featurize)
     dev = X.device
     w_new = torch.empty((B, D), dtype=torch.float32, device=dev)
     b_new = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -88,5 +140,5 @@ def primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
         _build.ptr(W), _build.ptr(bias), _build.ptr(w_new),
         _build.ptr(b_new), _build.ptr(ell), _build.ptr(yhat),
         B, d, D, int(featurize), float(scale), LOSSES[loss], float(eta),
-        float(1.0 - eta * lam), _build.stream_of(X))
+        float(1.0 - eta * lam), *geo, _build.stream_of(X))
     return w_new, b_new, ell, yhat

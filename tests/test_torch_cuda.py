@@ -104,6 +104,146 @@ def test_primal_step_matches_plain(featurize, loss, cuda):
             _close(g, w, f"primal_step {name} B={B}")
 
 
+#: budgets and feature counts across every chunk and cluster edge of
+#: the two cluster kernels (kernels/fused.py: 128 slots or 256 features
+#: a block, at most 8 blocks a cluster; csrc: tiles of up to 128 slots /
+#: 256 features), and the row counts at which rows must not move
+SV_BUDGETS = [1, 127, 128, 129, 1023, 1024, 1025, 4096, 4097]
+RFF_FEATURES = [1, 127, 129, 2048, 2049, 4096, 4097]
+BATCHES = [1, 2, 3, 4, 8, 16, 32, 33, 64]
+
+
+def _rff_step_args(gen, B, D, dev):
+    args = (_randn(gen, B, 18, dev=dev), torch.sign(_randn(gen, B, dev=dev)),
+            0.1 * _randn(gen, B, D, dev=dev), _randn(gen, B, dev=dev))
+    kw = dict(W=0.3 * _randn(gen, D, 18, dev=dev),
+              bias=(2 * np.pi * torch.rand(D, generator=gen)).to(dev),
+              scale=float(np.sqrt(2.0 / D)))
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", SV_BUDGETS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_sv_predict_cluster_edges_match_plain(kind, N, cuda):
+    gen = torch.Generator().manual_seed(N)
+    X, SV = _randn(gen, 5, 18, dev=cuda), _randn(gen, 5, N, 18, dev=cuda)
+    A = _randn(gen, 5, N, dev=cuda)
+    ops.reset_launch_counts()
+    for a in (A, torch.zeros_like(A)):
+        got = fused.sv_predict(X, SV, a, kind=kind, gamma=0.05)
+        _close(got, ref.sv_predict_ref(X, SV, a, kind=kind, gamma=0.05),
+               f"sv_predict {kind} N={N}")
+        assert torch.equal(got, fused.sv_predict(X, SV, a, kind=kind,
+                                                 gamma=0.05))
+    assert ops.LAUNCH_COUNTS["sv_predict"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", RFF_FEATURES)
+@pytest.mark.parametrize("loss", ["hinge", "squared"])
+def test_rff_step_cluster_edges_match_plain(loss, D, cuda):
+    gen = torch.Generator().manual_seed(D)
+    args, kw = _rff_step_args(gen, 5, D, cuda)
+    ops.reset_launch_counts()
+    got = fused.primal_step(*args, loss=loss, **kw)
+    want = ref.primal_step_ref(*args, loss=loss, **kw)
+    for g, w, name in zip(got, want, ("w", "b", "ell", "yhat")):
+        _close(g, w, f"primal_step rff {name} {loss} D={D}")
+    again = fused.primal_step(*args, loss=loss, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert ops.LAUNCH_COUNTS["rff_step"] == 2
+
+
+def _rows_bitwise_at_every_batch(call, count_as):
+    """call(B) on the first B rows: each row bitwise the 64-row call's,
+    one launch counted per call."""
+    full = call(max(BATCHES))
+    for B in BATCHES:
+        before = ops.LAUNCH_COUNTS[count_as]
+        got = call(B)
+        assert ops.LAUNCH_COUNTS[count_as] == before + 1
+        for g, f in zip(got, full):
+            assert torch.equal(g, f[:B]), B
+
+
+def _off16(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte
+    boundary: every block's run then has unaligned ends to stage."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    start = (4 - flat.data_ptr() // 4 % 4) % 4 + 1
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1024, 4096])
+def test_sv_predict_staging_paths_agree_bitwise(N, cuda):
+    """Operands whose runs start on 16-byte boundaries and copies that
+    start 4 bytes past one stage differently: the same rows, bitwise."""
+    gen = torch.Generator().manual_seed(5)
+    X, SV = _randn(gen, 4, 18, dev=cuda), _randn(gen, 4, N, 18, dev=cuda)
+    A = _randn(gen, 4, N, dev=cuda)
+    assert SV.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0
+    for kind in KINDS:
+        got = fused.sv_predict(X, SV, A, kind=kind, gamma=0.05)
+        assert torch.equal(got, fused.sv_predict(
+            X, _off16(SV), _off16(A), kind=kind, gamma=0.05)), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2048, 4096])
+def test_rff_step_staging_paths_agree_bitwise(D, cuda):
+    gen = torch.Generator().manual_seed(6)
+    args, kw = _rff_step_args(gen, 4, D, cuda)
+    got = fused.primal_step(*args, **kw)
+    again = fused.primal_step(*args, **dict(kw, W=_off16(kw["W"])))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_refuse_a_row_too_wide_for_shared_memory(cuda):
+    """The C side owns the shared-memory layout: a row wider than a
+    block can stage is refused with no launch counted (the CPU path
+    takes it, tests/test_torch_fused_geometry.py)."""
+    z = torch.zeros
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused.sv_predict(z(1, 60000, device=cuda), z(1, 1, 60000, device=cuda),
+                         z(1, 1, device=cuda))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused.primal_step(z(1, 60000, device=cuda), z(1, device=cuda),
+                          z(1, 60000, device=cuda), z(1, device=cuda))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused.primal_step(z(1, 60000, device=cuda), z(1, device=cuda),
+                          z(1, 1, device=cuda), z(1, device=cuda),
+                          W=z(1, 60000, device=cuda), bias=z(1, device=cuda))
+    assert sum(ops.LAUNCH_COUNTS.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1024, 1025])
+def test_sv_predict_rows_bitwise_at_every_batch(N, cuda):
+    gen = torch.Generator().manual_seed(3)
+    X, SV = _randn(gen, 64, 18, dev=cuda), _randn(gen, 64, N, 18, dev=cuda)
+    A = _randn(gen, 64, N, dev=cuda)
+    _rows_bitwise_at_every_batch(
+        lambda B: (fused.sv_predict(X[:B], SV[:B], A[:B], gamma=0.05),),
+        "sv_predict")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2048, 2049])
+def test_rff_step_rows_bitwise_at_every_batch(D, cuda):
+    gen = torch.Generator().manual_seed(4)
+    args, kw = _rff_step_args(gen, 64, D, cuda)
+    _rows_bitwise_at_every_batch(
+        lambda B: fused.primal_step(*(a[:B] for a in args), **kw),
+        "rff_step")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["sv", "rff", "linear"])
 def test_engine_kernels_match_reference_and_repeat(family, cuda):

@@ -35,7 +35,9 @@ non-zero with no result line:
    dynamic (m = 32, budget 1024), RFF dynamic (m = 32, D = 2048),
    linear periodic (m = 1024).  Each run must launch its kernels,
    agree with ``backend="reference"`` on the card (same sync rounds and
-   bytes, losses within tolerance), and repeat bitwise.
+   bytes, losses and compression errors within tolerance), and repeat
+   bitwise; the SV runs must peak under 1 GiB of device memory (their
+   syncs hold no (m tau)^2 Gram).
 4. serving: ``serving.serve_stream`` on the same streams and learners
    (RFF dynamic and SV dynamic under continuous batching with a
    shedding queue, linear periodic on the tick grid), about 16,000
@@ -49,7 +51,12 @@ non-zero with no result line:
 5. ``gram_path``: ``ops.gram_spec`` on the SV sync's shape (m tau =
    32768 SUSY rows, d = 18, gaussian); it must launch ``gram`` and
    agree with the plain version within 2e-5, which a TF32 cross term
-   must miss (the ``gram`` kernel line times this shape only).
+   must miss (the ``gram`` kernel line times this shape only).  Then
+   ``sync_route``: the sync's ``compression.truncate`` at that shape
+   under ``backend="kernels"`` (one ``quadform``, no Gram) against
+   ``backend="reference"``: the same model bitwise, epsilon within the
+   parity pair; and epsilon^2 by the quadform, gram and plain routes,
+   each timed with its peak memory.
 6. ``lm_serve``: ``serving.lm.LMServingEngine`` with ``qwen2_5_3b`` at
    full width and depth (36 layers, bf16, ``use_flash=True``, weights
    drawn on the card from seed 0), batch 4, max_len 2048, eight
@@ -130,6 +137,13 @@ LM_MAX_LEN = 2048
 LM_NEW_TOKENS = 32
 LM_PROMPTS = (1500, 1200, 700, 333, 1024, 900, 512, 64)
 FLASH_MAIN = (LM_BATCH * 16, 1500, 128)    # (B H, S, hd) of the first batch
+# gram's edges: M and N across its 64-row and 128-column tiles and its
+# 16-byte stores, d across its chunks of 32 features
+GRAM_SIDES = [1, 127, 129, 130, 4097]
+GRAM_D = [1, 17, 18, 31, 32, 33, 64]
+# an SV run's peak device memory under backend="kernels": the sync no
+# longer holds the (m tau)^2 Gram (4.3 GB)
+SV_PEAK_LIMIT = 1 << 30
 
 
 # A kernel redesigned for Hopper, and what its earlier design took at the
@@ -149,6 +163,14 @@ EARLIER = {
                         "thread 0 alone on the loss",
                         "ms": 0.061098880767822265,
                         "device_ms": 0.01649204000000005},
+    "primal_step_linear": {"design": "a block of 32 threads per learner at "
+                           "D = 18: x staged in shared memory behind a "
+                           "barrier, a five-barrier shared-memory tree, "
+                           "thread 0 alone on the loss",
+                           "ms": 0.05463, "device_ms": 0.002671},
+    "gram": {"design": "one short-lived block of 128 threads per 32 x 128 "
+             "tile, 4-byte stores, the kind a runtime branch per element",
+             "ms": 3.6429, "device_ms": 3.6521, "linear_ms": 2.978},
 }
 
 # row counts at which each row of sv_predict and primal_step must come
@@ -602,21 +624,31 @@ def check_flash(flashmod, ref, dev, gen):
 
 
 def check_gram(grammod, ref, dev, gen):
-    """``gram`` against ``ref.gram_ref`` within 2e-5 at the CPU tests'
-    edges; timed at the SV sync's shape, where ``gram_path`` holds it to
-    the plain version."""
-    kinds = ["gaussian", "poly", "linear"]
+    """``gram`` against ``ref.gram_ref`` within 2e-5 across its tiles,
+    stores and feature chunks (M, N in ``GRAM_SIDES``, d in ``GRAM_D``),
+    a row alone bitwise its row of the whole Gram, a repeat bitwise;
+    timed at the SV sync's shape (gaussian, and linear beside
+    ``torch.matmul``), where ``gram_path`` holds it to the plain
+    version."""
     errs = {}
-    for kind in kinds:
-        for M, N in [(1, 1), (127, 129), (130, 150), (256, 384)]:
-            for d in (1, 6, D_IN):
-                X = torch.randn(M, d, generator=gen).to(dev)
-                Y = torch.randn(N, d, generator=gen).to(dev)
-                kw = dict(kind=kind, gamma=GAMMA)
-                label = f"gram {kind} {M}x{N} d={d}"
-                errs[label] = close_dev(grammod.gram(X, Y, **kw),
-                                        ref.gram_ref(X, Y, **kw), label,
-                                        KERNEL_TOL, KERNEL_TOL)
+    for kind in ("gaussian", "poly", "linear"):
+        kw = dict(kind=kind, gamma=GAMMA)
+        for d in GRAM_D:
+            for M in GRAM_SIDES:
+                for N in GRAM_SIDES:
+                    X = torch.randn(M, d, generator=gen).to(dev)
+                    Y = torch.randn(N, d, generator=gen).to(dev)
+                    label = f"gram {kind} {M}x{N} d={d}"
+                    K = grammod.gram(X, Y, **kw)
+                    errs[label] = close_dev(K, ref.gram_ref(X, Y, **kw), label,
+                                            KERNEL_TOL, KERNEL_TOL)
+                    if M == 130:
+                        for i in (0, 63, 64, 129):
+                            assert torch.equal(
+                                grammod.gram(X[i:i + 1], Y, **kw)[0], K[i]), \
+                                f"{label}: row {i} alone differs"
+                        assert torch.equal(grammod.gram(X, Y, **kw), K), \
+                            f"{label}: a repeat differs"
     M = N = GRAM_M
     X = torch.randn(M, D_IN, generator=gen).to(dev)
     Y = torch.randn(N, D_IN, generator=gen).to(dev)
@@ -630,12 +662,13 @@ def check_gram(grammod, ref, dev, gen):
     emit({"phase": "kernel_tolerance", "name": "gram",
           "rtol": KERNEL_TOL, "atol": KERNEL_TOL,
           "max_abs_err_edges": max(errs.values()),
-          # the linear kind, where one PyTorch call computes it
-          "linear_ms": lin["ms"], "linear_device_ms": lin["device_ms"],
-          "linear_library_ms": library["ms"],
-          "linear_library_device_ms": library["device_ms"]})
-    return ({"max_edges": max(errs.values())}, ms, plain,
-            bound_ms(nbytes, flops))
+          "edges": {"sides": GRAM_SIDES, "d": GRAM_D}})
+    return ({"max_edges": max(errs.values())},
+            dict(ms, linear_ms=lin["ms"], linear_device_ms=lin["device_ms"],
+                 linear_bound_ms=bound_ms(nbytes, M * N * 2 * D_IN)[0],
+                 linear_library_ms=library["ms"],
+                 linear_library_device_ms=library["device_ms"]),
+            plain, bound_ms(nbytes, flops))
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +689,7 @@ def e2e_configs():
     lin = LearnerConfig(algo="linear_sgd", loss="hinge", dim=D_IN)
     return [
         ("sv_periodic", sv, M_KERNEL, ProtocolConfig(kind="periodic", period=50),
-         ("sv_predict",)),
+         ("sv_predict", "quadform")),
         ("sv_dynamic", sv, M_KERNEL,
          ProtocolConfig(kind="dynamic", delta=16.0, mini_batch=10),
          ("sv_predict", "quadform")),
@@ -722,11 +755,16 @@ def run_e2e(ops, totals, runs):
         for k in kernels:
             assert counts.get(k, 0) > 0, f"{name}: {k} never launched"
             totals[k] = totals.get(k, 0) + counts[k]
+        if name.startswith("sv_"):
+            # the sync compresses through quadform: no (m tau)^2 Gram
+            assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         want = engine.run(learner, pcfg, X, Y, backend="reference",
                           device="cuda")
         torch.cuda.synchronize()
         ref_secs = time.perf_counter() - t0
+        ref_peak = torch.cuda.max_memory_allocated()
         # the repeat records the distances its checks compare with delta,
         # and the device time of every CUDA kernel it launches
         dists: list = []
@@ -772,6 +810,7 @@ def run_e2e(ops, totals, runs):
               "reference_total_loss": want.total_loss,
               "error_rate": float(got.cumulative_errors[-1]) / (T_ROUNDS * m),
               "max_memory_allocated": peak,
+              "reference_max_memory_allocated": ref_peak,
               # device busy share: kernel time of the (profiled) repeat
               # over the wall time of the unprofiled kernel run
               "device_s": device_s, "device_busy_share": device_s / secs,
@@ -1083,6 +1122,70 @@ def run_gram_path(ops, ref, totals) -> float:
           "max_abs_err_vs_plain": err, "tf32_control_err": control_err,
           "tf32_control_bad": bad, "mean_k": mean_k})
     return err
+
+
+def run_sync_route(ops, ref) -> dict:
+    """The SV sync's compression at full size (m tau = 32768 SUSY rows,
+    d = 18, tau = 1024, gaussian): ``compression.truncate`` under
+    ``backend="kernels"`` (one ``quadform``, no Gram in memory) against
+    ``backend="reference"`` (the plain 32768^2 Gram and form): the same
+    model bitwise, epsilon within the parity pair.  Then epsilon^2 by
+    each route, timed (device ms) with its peak memory above what was
+    allocated before: the quadform route, the gram route (``gram``
+    kernel, then the plain form on its buffer) and the plain route.
+    Its launches are comparisons: they do not count for the kernels
+    line."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import compression, rkhs
+    from repro_torch.core.rkhs import KernelSpec, SVModel
+    from repro_torch.data.streams import susy_stream
+
+    dev = device_mod.resolve()
+    X, _ = susy_stream(BUDGET, M_KERNEL, d=D_IN, seed=0)
+    sv = torch.as_tensor(X.reshape(-1, D_IN), device=dev)
+    gen = torch.Generator().manual_seed(2)
+    # the average of m learners: coefficients of a budget's scale over m
+    alpha = (torch.randn(GRAM_M, generator=gen) / M_KERNEL).to(dev)
+    f = SVModel(sv=sv, alpha=alpha,
+                sv_id=torch.arange(GRAM_M, dtype=torch.int32, device=dev))
+    spec = KernelSpec("gaussian", gamma=GAMMA)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got, eps = compression.truncate(spec, f, BUDGET, backend="kernels")
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCH_COUNTS)
+    assert counts == {"quadform": 1}, counts
+    want, ref_eps = compression.truncate(spec, f, BUDGET)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), "sync_route: the compressed models differ"
+    err = close(eps, ref_eps, "sync_route eps")
+    keep = torch.zeros(GRAM_M, dtype=torch.bool, device=dev)
+    keep[torch.argsort(-alpha.abs(), stable=True)[:BUDGET]] = True
+    beta = torch.where(keep, torch.zeros_like(alpha), alpha)
+    routes = {
+        "quadform": lambda: ops.quadform_spec(spec, sv[None], sv[None],
+                                              beta[None], beta[None])[0],
+        "gram": lambda: rkhs.quadform_(ops.gram_spec(spec, sv, sv), beta,
+                                       beta),
+        "plain": lambda: rkhs.quadform_(rkhs.gram(spec, sv, sv), beta, beta),
+    }
+    out = {}
+    for name, fn in routes.items():
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eps_sq = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        close(torch.sqrt(torch.clamp(eps_sq, min=0.0)), ref_eps,
+              f"sync_route {name} eps")
+        out[name] = dict(time_ms(fn, iters=10), peak_bytes=peak)
+    torch.cuda.empty_cache()
+    emit({"phase": "sync_route", "m_tau": GRAM_M, "tau": BUDGET, "d": D_IN,
+          "eps_kernels": float(eps), "eps_reference": float(ref_eps),
+          "eps_max_abs_err": err, "routes": out})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1463,6 +1566,7 @@ def main() -> int:
     check_rows_below_threshold(dev, gen)
     results["gram"]["errs"]["main"] = run_gram_path(ops, ref, totals)
     torch.cuda.empty_cache()
+    run_sync_route(ops, ref)
     run_lm_serve(ops, totals)
 
     meta = {
@@ -1496,7 +1600,11 @@ def main() -> int:
             # tensors; no single PyTorch call computes the others (gram's
             # main kind is the gaussian)
             "library_ms": r.get("library_ms"), "device_ms": r["device_ms"],
-            "plain_device_ms": r["plain_device_ms"]})
+            "plain_device_ms": r["plain_device_ms"],
+            # gram's linear kind, beside torch.matmul(X, Y.T)
+            **{k: r[k] for k in ("linear_ms", "linear_device_ms",
+                                 "linear_bound_ms", "linear_library_ms",
+                                 "linear_library_device_ms") if k in r}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,16 @@ next sync's byte count, so both orderings use a STABLE sort, as the
 reference's ``jnp.argsort`` is: ties among equal |alpha| (the
 duplicated slots an average after an adopt produces) keep the
 reference's slots.
+
+Backends, as the substrates': ``"reference"`` evaluates the plain
+expressions (the (M, M) Gram of the M = m tau slots of a sync's
+average, 4.3 GB at M = 32768, then the form on it).  ``"kernels"``,
+once M reaches the launch threshold (``ops.engages``), takes
+``truncate``'s one form beta^T K beta through ``ops.quadform_spec``
+(one form, P = 1, that never holds K in memory) and ``project``'s K,
+which its solve needs, from ``ops.gram_spec``.  Which slots are kept
+depends on |alpha| alone, so both backends compress to the same model;
+epsilon moves by the order of its sums.
 """
 from __future__ import annotations
 
@@ -23,6 +33,18 @@ from .rkhs import KernelSpec, SVModel, active_mask, gram, quadform, quadform_
 
 #: The default compression method of every entry point.
 DEFAULT_METHOD = "truncate"
+BACKENDS = ("reference", "kernels")
+
+
+def _kernels(backend: str, f: SVModel):
+    """The kernel face (kernels.ops) when the kernels backend engages on
+    f's slots, else None (the plain expressions)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "reference":
+        return None
+    from ..kernels import ops
+    return ops if ops.engages(f.budget) else None
 
 
 def _top_tau_mask(f: SVModel, tau: int) -> torch.Tensor:
@@ -53,20 +75,27 @@ def _pack_to_budget(f: SVModel, keep: torch.Tensor, tau: int) -> SVModel:
     )
 
 
-def truncate(spec: KernelSpec, f: SVModel, tau: int) -> Tuple[SVModel, torch.Tensor]:
+def truncate(spec: KernelSpec, f: SVModel, tau: int,
+             backend: str = "reference") -> Tuple[SVModel, torch.Tensor]:
     """Truncate f to at most tau support vectors (smallest-|alpha| rule).
     Returns (f_trunc with budget tau, epsilon)."""
     keep = _top_tau_mask(f, tau)
     act = active_mask(f)
     dropped = act & ~keep
     beta = torch.where(dropped, f.alpha, torch.zeros_like(f.alpha))
-    K = gram(spec, f.sv, f.sv)              # the one (M, M) buffer
-    eps_sq = torch.clamp(quadform_(K, beta, beta), min=0.0)
+    ops = _kernels(backend, f)
+    if ops is not None:
+        eps_sq = ops.quadform_spec(spec, f.sv[None], f.sv[None], beta[None],
+                                   beta[None])[0]
+    else:
+        K = gram(spec, f.sv, f.sv)          # the one (M, M) buffer
+        eps_sq = quadform_(K, beta, beta)
+    eps_sq = torch.clamp(eps_sq, min=0.0)
     return _pack_to_budget(f, keep, tau), torch.sqrt(eps_sq)
 
 
-def project(spec: KernelSpec, f: SVModel, tau: int,
-            ridge: float = 1e-6) -> Tuple[SVModel, torch.Tensor]:
+def project(spec: KernelSpec, f: SVModel, tau: int, ridge: float = 1e-6,
+            backend: str = "reference") -> Tuple[SVModel, torch.Tensor]:
     """Compress f to tau SVs by projecting dropped SVs on the kept span
     (float32 solve, as the reference's)."""
     keep = _top_tau_mask(f, tau)
@@ -74,7 +103,9 @@ def project(spec: KernelSpec, f: SVModel, tau: int,
     dropped = act & ~keep
     beta = torch.where(dropped, f.alpha, torch.zeros_like(f.alpha))
 
-    K = gram(spec, f.sv, f.sv)
+    ops = _kernels(backend, f)
+    K = (ops.gram_spec(spec, f.sv, f.sv) if ops is not None
+         else gram(spec, f.sv, f.sv))
     keep_f = keep.to(K.dtype)
     K_kk = K * keep_f[:, None] * keep_f[None, :]
     K_kk = K_kk + (ridge + (1.0 - keep_f))[:, None] * torch.eye(
@@ -91,9 +122,10 @@ def project(spec: KernelSpec, f: SVModel, tau: int,
 
 
 def compress(spec: KernelSpec, f: SVModel, tau: int,
-             method: str = DEFAULT_METHOD) -> Tuple[SVModel, torch.Tensor]:
+             method: str = DEFAULT_METHOD,
+             backend: str = "reference") -> Tuple[SVModel, torch.Tensor]:
     if method == "truncate":
-        return truncate(spec, f, tau)
+        return truncate(spec, f, tau, backend=backend)
     if method == "project":
-        return project(spec, f, tau)
+        return project(spec, f, tau, backend=backend)
     raise ValueError(f"unknown compression method {method!r}")

@@ -51,7 +51,7 @@ from .learners import KernelLearnerState, LearnerConfig, LinearLearnerState
 from .rff import RFFLearnerState, RFFSpec
 from .rkhs import SVModel
 
-_BACKENDS = ("reference", "kernels")
+_BACKENDS = compression.BACKENDS
 
 
 def _kops():
@@ -255,7 +255,8 @@ class SVSubstrate(Substrate):
     def average_stacked(self, models: SVModel):
         fbar = rkhs.average_stacked(models)           # budget m * tau
         return compression.compress(self.lcfg.kernel, fbar,
-                                    self.sync_budget, self.compress_method)
+                                    self.sync_budget, self.compress_method,
+                                    backend=self.backend)
 
     def adopt(self, models: SVModel, fsync: SVModel) -> SVModel:
         one = rkhs.pad_to_budget(fsync, self.lcfg.budget)

@@ -233,6 +233,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+// cp.async groups: close this thread's copies issued so far into a
+// group; wait until all of this thread's groups have landed
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Stages the K runs on `bar`, by one thread.  With unaligned ends, their
 // cp.async copies go first, then an arrive that raises the barrier's
 // pending count now and lands once they have (so the phase waits for

@@ -57,17 +57,39 @@
 // before its C sums have landed, so no closing barrier is needed.  No
 // float atomics, one launch.
 //
-// Linear variant (D = d; B = 1024 at the engine, a block per learner
-// already): the first design, kept: one block of a power of two >= 32
-// threads per learner, a fixed-order block tree for yhat.
+// Linear variant (z = x, D = d; B = 1024, D = 18 at the engine).  Bound:
+// bytes, B (3 D + 5) floats, 241,664 bytes or 0.0000721 ms at the
+// engine's shape; what a design has to beat is the launch (0.00114 ms
+// device for one PyTorch kernel on one element) and the chain of
+// dependent steps behind it.  The first design (a block of a power of
+// two >= 32 threads a learner: x staged in shared memory, a barrier, w
+// loaded after it, a five-barrier shared-memory tree, thread 0 alone on
+// the loss, a barrier to hand g on) took 0.00267 ms.  This one
+// (kernels/fused.py::primal_step_geometry(D, False) = (1, 32), checked
+// here):
+// - a warp a learner, 8 learners a block (contiguous rows of x and w);
+//   lane l owns the features l, l + 32, ... < D: one path for every D,
+//   no shared memory, no barrier;
+// - every lane loads its x_j and w_j as the warp's coalesced run of the
+//   row (one 72-byte run an operand at D = 18), and the label and bias
+//   in the same round trip; scalar loads, because 16-byte ones would
+//   tie the lane order to the row's alignment;
+// - yhat: each lane's fmaf sum in j order, then the fixed shuffle tree
+//   (offsets 16, 8, 4, 2, 1); lane 0 forms the loss, g and b', and one
+//   __shfl_sync hands g to the warp;
+// - w' = fmaf(-eta g, x, decay w) as in the RFF path, a coalesced store
+//   a lane and feature.
+// A learner's floats depend on D alone: not on B, not on its warp in the
+// block.  At D <= 32 they are the first design's bitwise (the same
+// products, the same tree).
 //
 // Registers and shared memory (ptxas -v, sm_90a, from the build log the
 // kernels' build writes beside the library, build/<hash>/build.log, and
 // chip_smoke.py saves as chip_smoke_build.log; on an H100): the RFF kernel
 // 63 registers, 80 bytes of static shared memory a block, 32 bytes of
 // stack (cosf's path for huge arguments), no spills, and 20,576 bytes of
-// dynamic shared memory at D = 2048, d = 18; the linear kernel 28
-// registers and 1,040 bytes of static shared memory.
+// dynamic shared memory at D = 2048, d = 18; the linear kernel 32
+// registers, no shared memory, no barrier.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -80,7 +102,8 @@ namespace {
 
 constexpr int kRffThreads = 256;      // an RFF block's threads; a tile's most
 constexpr int kMaxCluster = 8;        // the portable cluster size
-constexpr int kMaxLinearThreads = 256;
+constexpr int kLinearWarps = 8;       // learners a linear block, a warp each
+constexpr int kLinearThreads = 32 * kLinearWarps;
 constexpr int kSmemLimit = 232448;    // shared memory bytes a block can use
 
 enum Loss { LOSS_HINGE = 0, LOSS_SQUARED = 1 };
@@ -224,39 +247,36 @@ __global__ void __launch_bounds__(kRffThreads)
     wo[tail + t] = norma(decay, ws[tail + t], step, zs[tail + t]);
 }
 
-__global__ void linear_step_kernel(
-    const float* __restrict__ X, const float* __restrict__ Yl,
-    const float* __restrict__ w, const float* __restrict__ b,
-    float* __restrict__ w_new, float* __restrict__ b_new,
-    float* __restrict__ ell_out, float* __restrict__ yhat_out, int D,
-    float eta, float decay, int loss) {
-  extern __shared__ float xs[];   // the learner's example, D floats
-  __shared__ float red[kMaxLinearThreads];
-  __shared__ float g_s;
-  const int i = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
+__global__ void __launch_bounds__(kLinearThreads)
+    linear_step_kernel(const float* __restrict__ X,
+                       const float* __restrict__ Yl,
+                       const float* __restrict__ w,
+                       const float* __restrict__ b,
+                       float* __restrict__ w_new, float* __restrict__ b_new,
+                       float* __restrict__ ell_out,
+                       float* __restrict__ yhat_out, int B, int D, float eta,
+                       float decay, int loss) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kLinearWarps + (threadIdx.x >> 5);
+  if (i >= B) return;   // a whole warp: the shuffles below see all 32 lanes
+  const float* xi = X + (size_t)i * D;
   const float* wi = w + (size_t)i * D;
-  float* wo = w_new + (size_t)i * D;
-
-  for (int k = t; k < D; k += nt) xs[k] = X[(size_t)i * D + k];
-  __syncthreads();
-
+  // the label and bias with the first features: one round trip
+  const float y = Yl[i], bi = b[i];
   float acc = 0.0f;
-  for (int j = t; j < D; j += nt) acc += wi[j] * xs[j];
-  const float dot = block_sum(acc, red);
-  if (t == 0) {
-    const float yhat = dot + b[i];
-    float l, g;
-    loss_grad(loss, yhat, Yl[i], l, g);
+  for (int j = lane; j < D; j += 32) acc = fmaf(wi[j], xi[j], acc);
+  const float dot = warp_sum(acc);   // lane 0's
+  float l = 0.0f, g = 0.0f;
+  if (lane == 0) {
+    const float yhat = dot + bi;
+    loss_grad(loss, yhat, y, l, g);
     ell_out[i] = l;
     yhat_out[i] = yhat;
-    b_new[i] = b[i] - eta * g;
-    g_s = g;
+    b_new[i] = bi - eta * g;
   }
-  __syncthreads();
-  const float step = eta * g_s;
-  for (int j = t; j < D; j += nt) wo[j] = norma(decay, wi[j], step, xs[j]);
+  const float step = eta * __shfl_sync(0xffffffffu, g, 0);
+  float* wo = w_new + (size_t)i * D;
+  for (int j = lane; j < D; j += 32) wo[j] = norma(decay, wi[j], step, xi[j]);
 }
 
 cudaError_t launch_rff(int B, int C, int smem, cudaStream_t stream,
@@ -291,9 +311,9 @@ cudaError_t launch_rff(int B, int C, int smem, cudaStream_t stream,
 
 // cluster, chunk: kernels/fused.py::primal_step_geometry(D, featurize).
 // RFF: the cluster and its slice of the features, the tile this file's to
-// pick; linear: cluster 1, chunk D, and a block of the smallest power of
-// two from 32 to 256 threads that covers D.  A geometry or a width this
-// kernel cannot run returns cudaErrorInvalidValue and launches nothing.
+// pick; linear: cluster 1 and chunk 32, a warp a learner whose lane l
+// owns the features l, l + 32, ...  A geometry or a width this kernel
+// cannot run returns cudaErrorInvalidValue and launches nothing.
 extern "C" int repro_primal_step(const float* X, const float* Yl,
                                  const float* w, const float* b,
                                  const float* W, const float* bias,
@@ -307,18 +327,11 @@ extern "C" int repro_primal_step(const float* X, const float* Yl,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (!featurize) {
-    if (D != d || D < 1 || cluster != 1 || chunk != D || 4LL * D > kSmemLimit)
+    if (D != d || D < 1 || cluster != 1 || chunk != 32)
       return (int)cudaErrorInvalidValue;
-    int threads = 32;
-    while (threads < D && threads < kMaxLinearThreads) threads *= 2;
-    if (4 * D > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          linear_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          4 * D);
-      if (err != cudaSuccess) return (int)err;
-    }
-    linear_step_kernel<<<B, threads, D * sizeof(float), st>>>(
-        X, Yl, w, b, w_new, b_new, ell, yhat, D, eta, decay, loss);
+    linear_step_kernel<<<(B + kLinearWarps - 1) / kLinearWarps,
+                         kLinearThreads, 0, st>>>(
+        X, Yl, w, b, w_new, b_new, ell, yhat, B, D, eta, decay, loss);
     return (int)cudaGetLastError();
   }
   const bool covers = D == 0 ? cluster == 1

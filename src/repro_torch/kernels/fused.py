@@ -18,11 +18,14 @@ How a call splits its rows is computed here, so that the CPU tests
 reach the arithmetic of the ragged edge: :func:`sv_predict_geometry`
 and :func:`primal_step_geometry` give each row a thread-block cluster
 of ``cluster`` blocks, block r owning the items [r chunk, min(n, (r + 1)
-chunk)) of the row (budget slots, or RFF features).  ``cluster`` and
-``chunk`` depend on the budget N or the feature count D alone, never on
-the number of rows, so a row's floats never depend on the batch around
-it.  The C entry points check the split, lay out their shared memory
-themselves and refuse what does not fit a block.
+chunk)) of the row (budget slots, or RFF features).  The linear step
+gives each learner one warp instead (``cluster`` 1), whose lane l owns
+the features l, l + ``chunk``, ... (``chunk`` 32, the warp's width),
+``LINEAR_WARPS`` learners a block.  ``cluster`` and ``chunk`` depend on
+the budget N or the feature count D alone, never on the number of rows,
+so a row's floats never depend on the batch around it.  The C entry
+points check the split, lay out their shared memory themselves and
+refuse what does not fit a block.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ LOSSES = {"hinge": 0, "squared": 1}
 SV_SLOTS = 128          # budget slots a block aims at (its threads)
 RFF_FEATURES = 256      # RFF features a block aims at (its threads)
 MAX_CLUSTER = 8         # the portable thread-block cluster size
+WARP = 32               # a linear learner's lanes (its feature stride)
+LINEAR_WARPS = 8        # linear learners a block, a warp each
 
 
 class Geometry(NamedTuple):
@@ -67,11 +72,12 @@ def sv_predict_geometry(N: int, d: int) -> Geometry:
 @functools.lru_cache(maxsize=None)
 def primal_step_geometry(D: int, featurize: bool) -> Geometry:
     """The split of a primal learner's D features.  RFF: C = min(8,
-    ceil(D / 256)) blocks, chunk = ceil(D / C).  Linear: one block per
-    learner (the first design, kept)."""
+    ceil(D / 256)) blocks, chunk = ceil(D / C).  Linear: one warp a
+    learner (cluster 1), lane l owning the features l, l + 32, ...
+    (chunk 32) for every D."""
     if D < 0 or (not featurize and D < 1):
         raise ValueError(f"primal_step: D {D}")
-    return _split(D, RFF_FEATURES) if featurize else Geometry(1, D)
+    return _split(D, RFF_FEATURES) if featurize else Geometry(1, WARP)
 
 
 def sv_predict(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,

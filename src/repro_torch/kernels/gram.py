@@ -3,9 +3,10 @@
 K(X, Y) for the gaussian, polynomial and linear kernels, each element
 written once, the row norms computed in-tile.  Replaces
 ``repro/kernels/gram.py::gram_pallas``; reached through ``ops.gram`` /
-``ops.gram_spec``, as in the reference (the compression Gram of a sync
-stays the plain expression of ``core/rkhs.py``, which the reference
-leaves to XLA).
+``ops.gram_spec``, as in the reference, and under the kernels backend
+by ``core/compression.py::project``, whose solve needs the Gram of a
+sync's slots (the reference leaves that Gram to XLA; ``truncate`` needs
+only one form of it and takes ``quadform``).
 
 A CPU tensor goes to the plain version (``ref.gram_ref``); a CUDA
 tensor goes to the kernel, or the wrapper raises.

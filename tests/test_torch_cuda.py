@@ -215,12 +215,18 @@ def test_cluster_kernels_refuse_a_row_too_wide_for_shared_memory(cuda):
                          z(1, 1, device=cuda))
     with pytest.raises(RuntimeError, match="CUDA error"):
         fused.primal_step(z(1, 60000, device=cuda), z(1, device=cuda),
-                          z(1, 60000, device=cuda), z(1, device=cuda))
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        fused.primal_step(z(1, 60000, device=cuda), z(1, device=cuda),
                           z(1, 1, device=cuda), z(1, device=cuda),
                           W=z(1, 60000, device=cuda), bias=z(1, device=cuda))
     assert sum(ops.LAUNCH_COUNTS.values()) == 0
+    # the linear step stages nothing (a warp a learner): any width runs
+    gen = torch.Generator().manual_seed(12)
+    args = (_randn(gen, 2, 60000, dev=cuda),
+            torch.sign(_randn(gen, 2, dev=cuda)),
+            0.1 * _randn(gen, 2, 60000, dev=cuda), _randn(gen, 2, dev=cuda))
+    for g, w, name in zip(fused.primal_step(*args), ref.primal_step_ref(*args),
+                          ("w", "b", "ell", "yhat")):
+        _close(g, w, f"linear step D=60000 {name}")
+    assert dict(ops.LAUNCH_COUNTS) == {"linear_step": 1}
 
 
 @pytest.mark.cuda
@@ -242,6 +248,78 @@ def test_rff_step_rows_bitwise_at_every_batch(D, cuda):
     _rows_bitwise_at_every_batch(
         lambda B: fused.primal_step(*(a[:B] for a in args), **kw),
         "rff_step")
+
+
+#: the linear step's widths: one lane's feature, lanes idle, a warp's
+#: width and its edges, many features a lane
+LINEAR_D = [1, 18, 31, 32, 33, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", LINEAR_D)
+def test_linear_step_rows_bitwise_at_every_batch(D, cuda):
+    """A warp a learner, 8 learners a block: a learner's floats depend
+    on D alone, so every B from 1 to 2048 gives the 2048-learner call's
+    rows bitwise (the last block ragged, each learner in another warp of
+    its block as B moves); the call matches the plain step."""
+    gen = torch.Generator().manual_seed(20 + D)
+    B = 2048
+    args = (_randn(gen, B, D, dev=cuda), torch.sign(_randn(gen, B, dev=cuda)),
+            0.1 * _randn(gen, B, D, dev=cuda), _randn(gen, B, dev=cuda))
+    for loss in ("hinge", "squared"):
+        full = fused.primal_step(*args, loss=loss)
+        want = ref.primal_step_ref(*args, loss=loss)
+        for g, w, name in zip(full, want, ("w", "b", "ell", "yhat")):
+            _close(g, w, f"linear step D={D} {loss} {name}")
+    full = fused.primal_step(*args)
+    for b in range(1, B + 1):
+        got = fused.primal_step(*(a[:b] for a in args))
+        assert all(torch.equal(g, f[:b]) for g, f in zip(got, full)), b
+    # a learner alone, from inside a block, is its row of the full call
+    for i in (0, 7, 8, 1029):
+        got = fused.primal_step(*(a[i:i + 1].contiguous() for a in args))
+        assert all(torch.equal(g, f[i:i + 1]) for g, f in zip(got, full)), i
+
+
+#: M and N across gram's 64-row and 128-column tiles and its 16-byte
+#: stores (4097: neither a multiple of 4 nor of the tile); d across its
+#: chunks of 32 features
+GRAM_SIDES = [1, 127, 129, 130, 4097]
+GRAM_D = [1, 17, 18, 31, 32, 33, 64]
+
+
+def _close_dev(got, want, label, tol=2e-5):
+    """|got - want| <= tol + tol |want| everywhere, on the card."""
+    assert got.shape == want.shape, label
+    assert bool(torch.isfinite(got).all()), label
+    err = (got - want).abs()
+    bad = int((err > tol + tol * want.abs()).sum())
+    assert bad == 0, f"{label}: {bad} elements off, max {float(err.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", GRAM_D)
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_tile_edges_match_plain_and_rows_are_bitwise(kind, d, cuda):
+    gen = torch.Generator().manual_seed(30 + d)
+    kw = dict(kind=kind, gamma=0.05)
+    ops.reset_launch_counts()
+    calls = 0
+    for M in GRAM_SIDES:
+        for N in GRAM_SIDES:
+            X, Y = _randn(gen, M, d, dev=cuda), _randn(gen, N, d, dev=cuda)
+            K = gram.gram(X, Y, **kw)
+            _close_dev(K, ref.gram_ref(X, Y, **kw),
+                       f"gram {kind} {M}x{N} d={d}")
+            calls += 1
+            if M == 130:
+                # a row alone is its row of the whole Gram, bitwise; a
+                # repeat is bitwise
+                for i in (0, 63, 64, 129):
+                    assert torch.equal(gram.gram(X[i:i + 1], Y, **kw)[0], K[i])
+                assert torch.equal(gram.gram(X, Y, **kw), K)
+                calls += 5
+    assert ops.LAUNCH_COUNTS["gram"] == calls
 
 
 @pytest.mark.cuda

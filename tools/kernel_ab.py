@@ -16,11 +16,23 @@ same seeded inputs:
   d 18): ``ms`` and ``device_ms`` as ``chip_smoke.time_ms`` gives them,
   and the same with the operands copied to start 4 bytes past a 16-byte
   boundary (``*_off16``);
-- ``engine.run`` of ``chip_smoke.py``'s ``sv_dynamic`` and
-  ``rff_dynamic`` at full width, twice each with ``backend="kernels"``
+- ``gram`` at the SV sync's shape (M = N = 32768, d 18), gaussian and
+  linear, and the sync's epsilon^2 = beta^T K beta over those rows by
+  its two kernel routes: one ``quadform`` form (``sync_quadform``) and
+  the ``gram`` kernel's buffer under the plain form (``sync_gram``),
+  both built from ``ops`` and ``core.rkhs`` names every tree has;
+  beside them ``torch.matmul(X, Y.T)``, the linear kind's library call
+  (timed only);
+- ``engine.run`` of ``chip_smoke.py``'s ``sv_periodic``, ``sv_dynamic``
+  and ``rff_dynamic`` at full width, twice each with ``backend="kernels"``
   and with ``backend="reference"``, alternating: rounds per second, and
   the host seconds per call spent inside the kernel wrappers
   (``fused.sv_predict`` / ``fused.primal_step``, no synchronize added).
+
+Each visit also gives a checksum of the outputs of the linear step, of
+``gram`` (both kinds) and of the sync's form on its inputs (the int64 sum
+of the output floats' bit patterns): equal checksums across trees say
+that a redesign kept a kernel's floats.
 
 One JSON line per tree visit, after the card's ``nvidia-smi`` name and
 power limit; the lines also go to ``kernel_ab.jsonl`` in chip_smoke.py's
@@ -42,8 +54,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
-E2E_RUNS = ("sv_dynamic", "rff_dynamic")
-WRAPPERS = {"sv_dynamic": "sv_predict", "rff_dynamic": "primal_step"}
+E2E_RUNS = ("sv_periodic", "sv_dynamic", "rff_dynamic")
+WRAPPERS = {"sv_periodic": "sv_predict", "sv_dynamic": "sv_predict",
+            "rff_dynamic": "primal_step"}
 DEVICE = "cuda"
 
 
@@ -92,7 +105,45 @@ def kernel_times(fused, x) -> dict:
         "primal_step_rff_off16": lambda: fused.primal_step(
             *args, **dict(rkw, W=Wo)),
     })
-    return {name: chip_smoke.time_ms(fn) for name, fn in calls.items()}
+    out = {name: chip_smoke.time_ms(fn) for name, fn in calls.items()}
+    out["checksums"] = {"primal_step_linear": checksum(
+        *calls["primal_step_linear"]())}
+    return out
+
+
+def checksum(*tensors) -> int:
+    """The int64 sum of the float32 outputs' bit patterns."""
+    return sum(int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+               for t in tensors)
+
+
+def sync_times(dev) -> dict:
+    """``gram`` and the two routes of the sync's form at full size."""
+    from repro_torch.core import rkhs
+    from repro_torch.kernels import gram, ops
+
+    gen = torch.Generator().manual_seed(1)
+    M, d = chip_smoke.GRAM_M, chip_smoke.D_IN
+    X = torch.randn(M, d, generator=gen).to(dev)
+    Y = torch.randn(M, d, generator=gen).to(dev)
+    beta = (torch.randn(M, generator=gen) / chip_smoke.M_KERNEL).to(dev)
+    beta[:chip_smoke.BUDGET] = 0.0            # the kept slots
+    spec = rkhs.KernelSpec("gaussian", gamma=chip_smoke.GAMMA)
+    calls = {
+        "gram_gaussian": lambda: gram.gram(X, Y, kind="gaussian",
+                                           gamma=chip_smoke.GAMMA),
+        "gram_linear": lambda: gram.gram(X, Y, kind="linear"),
+        "sync_quadform": lambda: ops.quadform_spec(
+            spec, X[None], X[None], beta[None], beta[None]),
+        "sync_gram": lambda: rkhs.quadform_(ops.gram_spec(spec, X, X), beta,
+                                            beta),
+        "library_matmul": lambda: torch.matmul(X, Y.T),
+    }
+    out = {name: chip_smoke.time_ms(fn, iters=10)
+           for name, fn in calls.items()}
+    out["checksums"] = {name: checksum(calls[name]()) for name in (
+        "gram_gaussian", "gram_linear", "sync_quadform")}
+    return out
 
 
 def e2e(fused) -> dict:
@@ -152,9 +203,9 @@ def measure(path: Path) -> dict:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    return {"build_s": build_s,
-            "kernels": kernel_times(fused, inputs(torch.device("cuda"))),
-            "e2e": e2e(fused)}
+    dev = torch.device("cuda")
+    return {"build_s": build_s, "kernels": kernel_times(fused, inputs(dev)),
+            "sync": sync_times(dev), "e2e": e2e(fused)}
 
 
 def main() -> int:

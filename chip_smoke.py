@@ -17,7 +17,14 @@ non-zero with no result line:
    batch of ``BATCHES``; ``sv_predict`` timed at B = 8 too), under
    the parity tolerance of tests/conftest.py:42-43 (``rff``, whose
    outputs are bounded by sqrt(2/D), to a thousandth of that bound,
-   with a bf16-projection control that must miss it; ``flash`` and
+   with a bf16-projection control that must miss it, at every bucket
+   size of serving with every row bitwise the one-row call and X 4
+   bytes off a 16-byte boundary bitwise X aligned, timed per bucket
+   size, its kernels line at M = 64 with the mean weighted by
+   ``serve_rff_dynamic``'s launches per bucket size beside it
+   (``weighted_*``); the dynamic check's ``ops.rkhs_dist_sq``,
+   2m + 1 forms in one ``quadform`` launch, bitwise the 3m-form launch;
+   ``flash`` and
    ``gram`` to the JAX package's rtol = atol = 2e-5 in float32, each
    with a TF32 control that must miss it, ``flash`` also with a control
    that rounds p once to bf16 before p.v, as a one-pass bf16 product
@@ -51,8 +58,10 @@ non-zero with no result line:
 5. ``gram_path``: ``ops.gram_spec`` on the SV sync's shape (m tau =
    32768 SUSY rows, d = 18, gaussian); it must launch ``gram`` and
    agree with the plain version within 2e-5, which a TF32 cross term
-   must miss (the ``gram`` kernel line times this shape only).  Then
-   ``sync_route``: the sync's ``compression.truncate`` at that shape
+   must miss (the ``gram`` kernel line times this shape only).  And
+   ``sync_route`` (run before phase 3, ahead of the serving runs' long
+   profiles, after which the profiler has lost whole windows of its
+   ms-long calls): the sync's ``compression.truncate`` at that shape
    under ``backend="kernels"`` (one ``quadform``, no Gram) against
    ``backend="reference"``: the same model bitwise, epsilon within the
    parity pair; and epsilon^2 by the quadform, gram and plain routes,
@@ -116,6 +125,10 @@ BF16_ULPS = 2
 # the LM's logits: tests/test_decode.py:37, of the largest logit
 LOGIT_TOL = 2e-2
 
+# time_ms's lead-in on a retried profiler window: about 0.1 s of one
+# spinning thread at the H100's 1.98 GHz
+LEAD_IN_CYCLES = 200_000_000
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -171,11 +184,25 @@ EARLIER = {
     "gram": {"design": "one short-lived block of 128 threads per 32 x 128 "
              "tile, 4-byte stores, the kind a runtime branch per element",
              "ms": 3.6429, "device_ms": 3.6521, "linear_ms": 2.978},
+    # at M = 64; by bucket size: tools/kernel_probe.py rff on the earlier
+    # tree
+    "rff": {"design": "one thread a column in blocks of 256 columns and 4 "
+            "rows (8 blocks at M <= 4, 64 at M = 32), W and X read from "
+            "device memory inside a run-time feature loop",
+            "ms": 0.026842880249023437, "device_ms": 0.0030975799999999345,
+            "device_ms_by_bucket": {
+                "1": 0.002610800000000013, "2": 0.0027526999999999907,
+                "4": 0.002922280000000037, "8": 0.0029498799999999846,
+                "16": 0.002969700000000023, "32": 0.0029943400000000137,
+                "64": 0.0030949399999999857}},
 }
 
 # row counts at which each row of sv_predict and primal_step must come
 # out bitwise as in a 64-row call
 BATCHES = (1, 2, 3, 4, 8, 16, 32, 33, 64)
+# serving's bucket sizes (serving/engine.py DEFAULT_BUCKETS): the row
+# counts of every rff launch on the main path
+RFF_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def emit(obj) -> None:
@@ -203,8 +230,13 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
     times the launches of that name a call makes.  The profiler can lose
     an event or two at a window's edge (seen for 3 us kernels): a name
     whose count is within two of a whole number of launches per call
-    keeps its mean; a window that lost more is profiled again, up to
-    three times, and then raises."""
+    keeps its mean.  It can also miss every kernel of a window's first
+    10 to 30 ms or more (seen after the serving runs' long profiles, on
+    the sync routes' ms-long calls, in this script's run of the parent
+    tree too; ``sync_route`` now runs before those profiles): a window
+    that lost more is profiled again, up to four times,
+    each opening with a ~0.1 s spin kernel and a short one as a marker,
+    and counting only the kernels after the marker; then it raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -217,15 +249,25 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / iters
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if attempt:
+                torch.cuda._sleep(LEAD_IN_CYCLES)
+                torch.cuda._sleep(10_000)        # the marker, ~5 us
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if attempt:
+            marks = [e for e in kernels if "spin_kernel" in e.name]
+            after = max((e.time_range.start for e in marks), default=None)
+            kernels = [] if after is None else [
+                e for e in kernels if "spin_kernel" not in e.name
+                and e.time_range.start > after]
         by_name = collections.defaultdict(list)
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name].append(e.time_range.elapsed_us())
+        for e in kernels:
+            by_name[e.name].append(e.time_range.elapsed_us())
         per_call = {name: round(len(us) / iters)
                     for name, us in by_name.items()}
         if by_name and all(per_call[name] > 0 and
@@ -233,9 +275,13 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
                            for name, us in by_name.items()):
             break
     else:
+        kinds = collections.Counter(str(e.device_type)
+                                    for e in prof.events())
         raise RuntimeError(f"the profiler recorded "
                            f"{sum(map(len, by_name.values()))} kernels "
-                           f"for {iters} calls")
+                           f"for {iters} calls (events by device: "
+                           f"{dict(kinds)}; by name: "
+                           f"{ {k: len(v) for k, v in by_name.items()} })")
     device_us = sum(per_call[name] * sum(us) / len(us)
                     for name, us in by_name.items())
     return {"ms": ms, "device_ms": device_us / 1e3}
@@ -355,7 +401,7 @@ def check_sv_predict(fused, ref, dev, gen):
         plain, bound_ms(nbytes, flops)
 
 
-def check_quadform(qf, ref, dev, gen):
+def check_quadform(qf, ops, ref, dev, gen):
     kinds = ["gaussian", "linear", "poly"]
     # (P, M, N, d): the engine's shape, the edges, and M, N off the
     # kernel's 64-row and 128-column tiles at one feature, one chunk of 32
@@ -379,6 +425,7 @@ def check_quadform(qf, ref, dev, gen):
                             f"{label}")
                 if (P, M) == (96, 1024) and not label:
                     errs[kind] = err
+    dist = check_dist_check(ops, qf, dev, gen)
     P, M, N = 96, 1024, 1024
     X = torch.randn(P, M, D_IN, generator=gen).to(dev)
     Y = torch.randn(P, N, D_IN, generator=gen).to(dev)
@@ -389,7 +436,46 @@ def check_quadform(qf, ref, dev, gen):
     plain = time_ms(lambda: ref.quadform_ref(X, Y, a, b, **kw), iters=5)
     nbytes = 4 * P * (M * D_IN + N * D_IN + M + N + 1)
     flops = P * M * N * (2 * D_IN + 8) + P * (M + N) * 2 * D_IN
-    return errs, ms, plain, bound_ms(nbytes, flops)
+    return errs, dict(ms, dist_check=dist), plain, bound_ms(nbytes, flops)
+
+
+def check_dist_check(ops, qf, dev, gen) -> dict:
+    """The dynamic check's distances (``ops.rkhs_dist_sq``, m = 32
+    learners against one reference model, budget 1024, d = 18): one
+    launch of 2m + 1 forms, <g, g> once, bitwise the 3m-form launch
+    built from ``ops.quadform`` (<g, g> m times); both timed."""
+    m, M = M_KERNEL, BUDGET
+    F = torch.randn(m, M, D_IN, generator=gen).to(dev)
+    G = torch.randn(M, D_IN, generator=gen).to(dev)
+    af = torch.randn(m, M, generator=gen).to(dev)
+    ag = torch.randn(M, generator=gen).to(dev)
+    af[:, M // 2:] = 0.0                  # padded slots
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    Gm, agm = G.expand(m, M, D_IN), ag.expand(m, M)
+
+    def three_m():
+        q = ops.quadform(torch.cat([F, Gm, F]), torch.cat([F, Gm, Gm]),
+                         torch.cat([af, agm, af]), torch.cat([af, agm, agm]),
+                         **kw)
+        return q[:m] + q[m:2 * m] - 2.0 * q[2 * m:]
+
+    forms, launch = [], qf.quadform
+    qf.quadform = lambda X, *a, **k: forms.append(X.shape[0]) or launch(
+        X, *a, **k)
+    try:
+        got = ops.rkhs_dist_sq(F, G, af, ag, **kw)
+    finally:
+        qf.quadform = launch
+    assert forms == [2 * m + 1], forms
+    want = three_m()
+    assert torch.equal(got, want), "rkhs_dist_sq differs from the 3m forms"
+    new = time_ms(lambda: ops.rkhs_dist_sq(F, G, af, ag, **kw), iters=20)
+    old = time_ms(three_m, iters=20)
+    out = {"m": m, "forms": forms[0], "forms_3m": 3 * m, "bitwise": True,
+           "ms": new["ms"], "device_ms": new["device_ms"],
+           "ms_3m": old["ms"], "device_ms_3m": old["device_ms"]}
+    emit({"phase": "dist_check", **out})
+    return out
 
 
 def _step_args(B, D, d, featurize, dev, gen):
@@ -453,14 +539,34 @@ def rff_atol(D: int) -> float:
     return RFF_ATOL_OF_SCALE * float(np.sqrt(2.0 / D))
 
 
+def off16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts 4 bytes past a 16-byte
+    boundary, as a bucket sliced from a larger tensor may."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    start = (4 - flat.data_ptr() // 4 % 4) % 4 + 1
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
 def check_rff(rffmod, ref, dev, gen):
     """``rff`` against ``rff_ref`` to a thousandth of the output bound,
-    row independence bitwise, and a control: the plain map with a bf16
-    projection must miss that limit (the check can see such a kernel)."""
+    with a control: the plain map with a bf16 projection must miss that
+    limit (the check can see such a kernel).  At every bucket size of
+    ``RFF_BUCKETS`` (a bucket the first M rows of a 64-row X, as
+    serving slices them): within that limit, every row bitwise the
+    one-row call, X 4 bytes off a 16-byte boundary bitwise X aligned,
+    and timed beside the plain version (``by_bucket``); the line's own
+    numbers are M = 64's, and ``main`` adds the buckets weighted by a
+    serving run's ``bucket_counts`` as ``weighted_*``.  Every 64-row
+    case, X as drawn or ten times it, also has each row bitwise the
+    one-row call."""
     cases = [(64, N_FEATURES, D_IN, 1.0), (32, N_FEATURES, D_IN, 1.0),
              (1, N_FEATURES, D_IN, 1.0), (127, 129, 7, 1.0),
              (128, 128, D_IN, 1.0), (129, 130, D_IN, 1.0),
-             (3, 130, D_IN, 1.0), (64, N_FEATURES, D_IN, 10.0)]
+             (3, 130, D_IN, 1.0), (130, 127, 33, 1.0),
+             (64, N_FEATURES, D_IN, 10.0)]
     errs = {}
     for M, D, d, scale in cases:
         X = (scale * torch.randn(M, d, generator=gen)).to(dev)
@@ -470,6 +576,8 @@ def check_rff(rffmod, ref, dev, gen):
         Z = rffmod.rff(X, W, b)
         want = ref.rff_ref(X, W, b)
         errs[label] = close(Z, want, label, rtol=0.0, atol=rff_atol(D))
+        assert torch.equal(rffmod.rff(off16(X), W, b), Z), \
+            f"{label}: X off a 16-byte boundary differs"
         if (M, D, scale) == (64, N_FEATURES, 1.0):
             proj = (X.bfloat16() @ W.bfloat16().T).float() + b
             control = float(np.sqrt(2.0 / D)) * torch.cos(proj)
@@ -481,23 +589,52 @@ def check_rff(rffmod, ref, dev, gen):
             for i in range(M):
                 assert torch.equal(rffmod.rff(X[i:i + 1], W, b)[0], Z[i]), \
                     f"{label}: row {i} differs from the one-row call"
-    M, D = 64, N_FEATURES
-    X = torch.randn(M, D_IN, generator=gen).to(dev)
+    D = N_FEATURES
+    X = torch.randn(max(RFF_BUCKETS), D_IN, generator=gen).to(dev)
     W = (np.sqrt(2 * GAMMA) * torch.randn(D, D_IN, generator=gen)).to(dev)
     b = (2 * np.pi * torch.rand(D, generator=gen)).to(dev)
-    ms = time_ms(lambda: rffmod.rff(X, W, b))
-    plain = time_ms(lambda: ref.rff_ref(X, W, b))
-    one = time_ms(lambda: rffmod.rff(X[:1], W, b))
-    nbytes = 4 * (M * D_IN + D * D_IN + D + M * D)
-    flops = 2 * M * D * D_IN
+    by_bucket = {}
+    for M in RFF_BUCKETS:
+        Xb = X[:M]
+        label = f"rff bucket M={M}"
+        Z = rffmod.rff(Xb, W, b)
+        errs[label] = close(Z, ref.rff_ref(Xb, W, b), label, rtol=0.0,
+                            atol=rff_atol(D))
+        # a row's floats do not depend on the rows around it
+        for i in range(M):
+            assert torch.equal(rffmod.rff(Xb[i:i + 1], W, b)[0], Z[i]), \
+                f"{label}: row {i} differs from the one-row call"
+        assert torch.equal(rffmod.rff(off16(Xb), W, b), Z), \
+            f"{label}: X off a 16-byte boundary differs"
+        kern = time_ms(lambda: rffmod.rff(Xb, W, b))
+        plain = time_ms(lambda: ref.rff_ref(Xb, W, b))
+        nbytes = 4 * (M * D_IN + D * D_IN + D + M * D)
+        by_bucket[M] = {"ms": kern["ms"], "device_ms": kern["device_ms"],
+                        "plain_ms": plain["ms"],
+                        "plain_device_ms": plain["device_ms"],
+                        "bound_ms": bound_ms(nbytes, 2 * M * D * D_IN)[0],
+                        "grid": list(rffmod.rff_geometry(M, D).grid)}
     emit({"phase": "kernel_tolerance", "name": "rff",
           "atol_at_D2048": rff_atol(N_FEATURES), "rtol": 0.0,
           "max_abs_err_any_shape": max(errs.values()),
           "bf16_projection_control_err": control_err})
+    M = max(RFF_BUCKETS)
+    main = by_bucket[M]
     errs = {"main": errs[f"rff M=64 D={N_FEATURES} d={D_IN} x1"],
             "max_any_shape": max(errs.values())}
-    return errs, dict(ms, ms_m1=one["ms"], device_ms_m1=one["device_ms"]), \
-        plain, bound_ms(nbytes, flops)
+    return errs, {"ms": main["ms"], "device_ms": main["device_ms"],
+                  "by_bucket": by_bucket}, \
+        {"ms": main["plain_ms"], "device_ms": main["plain_device_ms"]}, \
+        bound_ms(4 * (M * D_IN + D * D_IN + D + M * D), 2 * M * D * D_IN)
+
+
+def bucket_weighted(by_bucket: dict, counts: dict) -> dict:
+    """The mean of each number of ``by_bucket`` over a serving run's
+    launches: ``counts`` maps a bucket size to its launches."""
+    n = sum(counts.values())
+    keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms")
+    return {k: sum(by_bucket[int(M)][k] * c for M, c in counts.items()) / n
+            for k in keys}
 
 
 def one_pass_p(q, k, v, causal=True):
@@ -982,7 +1119,8 @@ def check_rows_below_threshold(dev, gen) -> None:
           "predict_batch_vs_plain_max_abs_err": out})
 
 
-def run_serving(ops, totals, runs):
+def run_serving(ops, totals, runs) -> dict:
+    """Returns each run's launches by bucket size."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.streams import susy_stream
@@ -992,6 +1130,7 @@ def run_serving(ops, totals, runs):
     learners = {name: (learner, m, pcfg)
                 for name, learner, m, pcfg, _ in e2e_configs()}
     gen = torch.Generator().manual_seed(1)
+    bucket_counts = {}
     for name, e2e_name, kernels, arrival, kw in serve_configs():
         learner, m, pcfg = learners[e2e_name]
         X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
@@ -1079,6 +1218,8 @@ def run_serving(ops, totals, runs):
               "predict_batch_vs_plain_max_abs_err": rows_err,
               "event_clock_latency": got.latency_percentiles(),
               "event_clock_wall": got.wall_clock})
+        bucket_counts[name] = dict(got.bucket_counts)
+    return bucket_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1534,7 +1675,7 @@ def main() -> int:
     results = {}
     checks = (
         ("sv_predict", lambda: check_sv_predict(fused, ref, dev, gen)),
-        ("quadform", lambda: check_quadform(qf, ref, dev, gen)),
+        ("quadform", lambda: check_quadform(qf, ops, ref, dev, gen)),
         ("primal_step_rff",
          lambda: check_primal_step(fused, ref, dev, gen, True)),
         ("primal_step_linear",
@@ -1559,14 +1700,28 @@ def main() -> int:
     # the runs use deterministic algorithms (after the kernel timings:
     # in this mode torch.empty fills its output, an extra kernel)
     torch.use_deterministic_algorithms(True)
+    # before the serving runs' long profiles, after which the profiler
+    # has lost whole windows of this phase's ms-long calls
+    run_sync_route(ops, ref)
     totals: dict = {}
     runs: dict = {}
     run_e2e(ops, totals, runs)
-    run_serving(ops, totals, runs)
+    bucket_counts = run_serving(ops, totals, runs)
+    # rff's line at the main path's mix of bucket sizes
+    rff_line = results["rff"]
+    counts = bucket_counts["serve_rff_dynamic"]
+    weighted = bucket_weighted(rff_line["by_bucket"], counts)
+    earlier = EARLIER["rff"]["device_ms_by_bucket"]
+    emit({"phase": "rff_buckets", "bucket_counts": counts,
+          "by_bucket": rff_line["by_bucket"], "weighted": weighted,
+          "earlier_weighted_device_ms": sum(
+              earlier[str(M)] * c for M, c in counts.items())
+          / sum(counts.values())})
+    rff_line.update({f"weighted_{k}": v for k, v in weighted.items()},
+                    weighted_by=counts)
     check_rows_below_threshold(dev, gen)
     results["gram"]["errs"]["main"] = run_gram_path(ops, ref, totals)
     torch.cuda.empty_cache()
-    run_sync_route(ops, ref)
     run_lm_serve(ops, totals)
 
     meta = {
@@ -1604,7 +1759,13 @@ def main() -> int:
             # gram's linear kind, beside torch.matmul(X, Y.T)
             **{k: r[k] for k in ("linear_ms", "linear_device_ms",
                                  "linear_bound_ms", "linear_library_ms",
-                                 "linear_library_device_ms") if k in r}})
+                                 "linear_library_device_ms",
+                                 # rff: the line's own numbers are M = 64's;
+                                 # beside them the serving run's mix of
+                                 # bucket sizes
+                                 "weighted_by", "weighted_ms",
+                                 "weighted_device_ms", "weighted_plain_ms",
+                                 "weighted_bound_ms") if k in r}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -61,8 +61,8 @@ SIGNATURES = {
     # scale, loss, eta, decay, cluster, chunk, stream
     "repro_primal_step": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _I, _F, _I, _F, _F, _I, _I, _VP],
-    # X, W, b, Z, M, D, d, scale, stream
-    "repro_rff": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
+    # X, W, b, Z, M, D, d, scale, rows_per_thread, stream
+    "repro_rff": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
     # X, Y, K, M, N, d, kind, gamma, degree, coef0, stream
     "repro_gram": [_VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _F, _VP],
     # q, k, v, o, BH, S, L, hd, bf16, scale, causal, window, stream

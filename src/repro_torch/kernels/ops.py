@@ -86,24 +86,28 @@ def quadform(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0, degree=3,
 def rkhs_dist_sq(F, G, af, ag, *, kind="gaussian", gamma=1.0, degree=3,
                  coef0=1.0):
     """||f_i - g||_H^2 for m stacked models F (m, M, d) with masked
-    coefficients af (m, M) against one model G (N, d), ag (N,): three
-    quadratic forms per learner, <f,f> + <g,g> - 2<f,g>, as the
-    reference's vmapped ``ops.rkhs_dist_sq``.  When all three engage
-    with one shape (budget == sync budget) they run as ONE launch of
-    P = 3m forms; otherwise each group engages on its own operands."""
+    coefficients af (m, M) against one model G (N, d), ag (N,):
+    <f,f> + <g,g> - 2<f,g>, as the reference's ``ops.rkhs_dist_sq``
+    vmapped over the learners with G unbatched computes it: m forms
+    <f_i, f_i>, ONE form <g, g> and m forms <f_i, g>.  When all of them
+    engage with one shape (budget == sync budget) they run as one launch
+    of P = 2m + 1 forms; otherwise each group engages on its own
+    operands.  A form's value does not depend on the forms beside it, so
+    <g, g> once is bitwise each of the m copies a 3m-form launch
+    computes; it is broadcast to the learners before the sum, which
+    keeps the sum's order."""
     kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
     m, M, d = F.shape
     N = G.shape[0]
-    Gm = G.expand(m, N, d)
-    agm = ag.expand(m, N)
-    groups = [(F, F, af, af), (Gm, Gm, agm, agm), (F, Gm, af, agm)]
+    groups = [(F, F, af, af), (G[None], G[None], ag[None], ag[None]),
+              (F, G.expand(m, N, d), af, ag.expand(m, N))]
     if M == N and engages(M):
         X, Y, a, b = (torch.cat([g[i] for g in groups]) for i in range(4))
         q = quadform(X, Y, a, b, **kw)
-        qff, qgg, qfg = q[:m], q[m:2 * m], q[2 * m:]
+        qff, qgg, qfg = q[:m], q[m:m + 1], q[m + 1:]
     else:
         qff, qgg, qfg = (quadform(*g, **kw) for g in groups)
-    return qff + qgg - 2.0 * qfg
+    return qff + qgg.expand(m) - 2.0 * qfg
 
 
 def fused_primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,

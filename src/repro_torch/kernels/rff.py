@@ -6,18 +6,52 @@ off the engine's fused round: the serving buckets (``predict_batch``),
 ``predict_one`` and the stacked ``predict``.
 
 The wrapper checks device, dtype, shape and contiguity, allocates Z
-with ``torch.empty``, launches on the current stream and counts the
-launch (``_build.LAUNCH_COUNTS["rff"]``).  A CPU tensor goes to the
-plain version (``ref.rff_ref``); a CUDA tensor goes to the kernel, or
-the wrapper raises.
+with ``torch.empty``, picks the row tile (``rff_geometry``), launches
+on the current stream and counts the launch
+(``_build.LAUNCH_COUNTS["rff"]``).  A CPU tensor goes to the plain
+version (``ref.rff_ref``); a CUDA tensor goes to the kernel, or the
+wrapper raises.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build, ref
+
+RFF_COLS = 32           # columns of Z a block, a lane each (kCols)
+RFF_WARPS = 8           # a block's warps; a thread's rows are 8 apart
+ROWS_PER_THREAD = (1, 2, 4, 8)
+FILL_BLOCKS = 132       # blocks to aim for: the H100's SMs
+MAX_GRID_Y = 65535      # row tiles past it are taken in a grid-stride loop
+
+
+class RffGeometry(NamedTuple):
+    """A launch's tiles: block (c, r) owns the columns [32 c, 32 c + 32)
+    and the rows [8 R r, 8 R r + 8 R) of Z, R rows a thread."""
+    rows_per_thread: int
+    col_tiles: int
+    row_tiles: int
+
+    @property
+    def grid(self) -> tuple:
+        return self.col_tiles, min(self.row_tiles, MAX_GRID_Y)
+
+
+@functools.lru_cache(maxsize=None)
+def rff_geometry(M: int, D: int) -> RffGeometry:
+    """The least rows a thread that still gives about ``FILL_BLOCKS``
+    blocks (at most 8): at D = 2048 (64 column tiles) serving's buckets
+    of 16, 32 and 64 rows get 128 blocks each.  Depends on M and D only;
+    an element's floats depend on neither."""
+    col_tiles = -(-D // RFF_COLS)
+    want = -(-FILL_BLOCKS // col_tiles)          # row tiles wanted
+    need = -(-M // (RFF_WARPS * want))
+    R = next((r for r in ROWS_PER_THREAD if r >= need), ROWS_PER_THREAD[-1])
+    return RffGeometry(R, col_tiles, -(-M // (RFF_WARPS * R)))
 
 
 def rff(X, W, b, *, num_features=None) -> torch.Tensor:
@@ -40,5 +74,6 @@ def rff(X, W, b, *, num_features=None) -> torch.Tensor:
     _build.launch(
         "rff", "repro_rff", X.device,
         _build.ptr(X), _build.ptr(W), _build.ptr(b), _build.ptr(Z),
-        M, D, d, float(scale), _build.stream_of(X))
+        M, D, d, float(scale), rff_geometry(M, D).rows_per_thread,
+        _build.stream_of(X))
     return Z

@@ -371,6 +371,101 @@ def test_rff_matches_plain_and_rows_are_independent(M, D, d, scale, cuda):
         assert torch.equal(rff.rff(X[i:i + 1], W, b)[0], Z[i]), i
 
 
+#: serving's bucket sizes (serving/engine.py DEFAULT_BUCKETS), then M and
+#: D across rff's 32-column and 8 R-row tiles; d inside one 32-feature
+#: chunk (1, 7, 18: most of it zeros) and across two (33)
+RFF_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
+RFF_SIDES = [1, 127, 129, 130]
+RFF_D = [1, 7, 18, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", RFF_D)
+def test_rff_buckets_and_edges_match_plain_and_rows_are_bitwise(d, cuda):
+    """At every bucket size (D = 2048, a bucket the first M rows of a
+    64-row X) and every (M, D) of the edges: within a thousandth of
+    sqrt(2/D) of the plain version; every row bitwise the one-row call;
+    a repeat bitwise; X starting 4 bytes past a 16-byte boundary
+    bitwise X aligned."""
+    gen = torch.Generator().manual_seed(40 + d)
+    X64 = _randn(gen, max(RFF_BUCKETS), d, dev=cuda)
+    shapes = [(M, 2048) for M in RFF_BUCKETS] + \
+        [(M, D) for M in RFF_SIDES for D in RFF_SIDES]
+    for M, D in shapes:
+        X = X64[:M] if D == 2048 else _randn(gen, M, d, dev=cuda)
+        W = 0.3 * _randn(gen, D, d, dev=cuda)
+        b = (2 * np.pi * torch.rand(D, generator=gen)).to(cuda)
+        label = f"rff M={M} D={D} d={d}"
+        ops.reset_launch_counts()
+        Z = rff.rff(X, W, b)
+        assert ops.LAUNCH_COUNTS["rff"] == 1
+        _close(Z, ref.rff_ref(X, W, b), label, rtol=0.0,
+               atol=1e-3 * np.sqrt(2.0 / D))
+        assert torch.equal(rff.rff(X, W, b), Z), f"{label}: a repeat"
+        Xo = _off16(X)
+        assert torch.equal(rff.rff(Xo, W, b), Z), f"{label}: X off 16 B"
+        for i in range(M):
+            assert torch.equal(rff.rff(X[i:i + 1], W, b)[0], Z[i]), \
+                f"{label}: row {i}"
+
+
+def _dist_3m(F, G, af, ag, **kw):
+    """The 3m-form arrangement of ``ops.rkhs_dist_sq`` (one launch of
+    <f_i, f_i>, m copies of <g, g>, <f_i, g>), built from
+    ``ops.quadform``."""
+    m, N, d = F.shape[0], G.shape[0], G.shape[1]
+    Gm, agm = G.expand(m, N, d), ag.expand(m, N)
+    q = ops.quadform(torch.cat([F, Gm, F]), torch.cat([F, Gm, Gm]),
+                     torch.cat([af, agm, af]), torch.cat([af, agm, agm]),
+                     **kw)
+    return q[:m] + q[m:2 * m] - 2.0 * q[2 * m:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 32])
+@pytest.mark.parametrize("kind", KINDS)
+def test_rkhs_dist_sq_is_the_3m_form_launch_bitwise(kind, m, cuda):
+    """The 2m + 1 forms (<g, g> once) in one launch give the 3m-form
+    launch's distances bitwise: a form's value does not depend on the
+    forms beside it."""
+    gen = torch.Generator().manual_seed(50 + m)
+    M, d = 256, 18
+    F, G = _randn(gen, m, M, d, dev=cuda), _randn(gen, M, d, dev=cuda)
+    af, ag = _randn(gen, m, M, dev=cuda), _randn(gen, M, dev=cuda)
+    af[:, M // 2:] = 0.0                 # padded slots
+    kw = dict(kind=kind, gamma=0.05)
+    ops.reset_launch_counts()
+    got = ops.rkhs_dist_sq(F, G, af, ag, **kw)
+    assert ops.LAUNCH_COUNTS["quadform"] == 1
+    assert torch.equal(got, _dist_3m(F, G, af, ag, **kw))
+
+
+@pytest.mark.cuda
+def test_dist_to_ref_is_the_3m_form_launch_bitwise(cuda):
+    """The SV substrate's ``dist_to_ref`` (the dynamic check) under
+    ``backend="kernels"``: one launch, bitwise the 3m-form arrangement
+    on the same masked coefficients."""
+    from repro_torch.core import rkhs, substrate
+    gen = torch.Generator().manual_seed(60)
+    m, budget, d = 8, 256, 18
+    sub = substrate.substrate_of(
+        LearnerConfig(budget=budget, dim=d, kernel=KernelSpec(gamma=0.05)),
+        backend="kernels")
+    ids = torch.arange(m * budget, dtype=torch.int32).view(m, budget)
+    ids[:, budget // 3:] = -1            # empty slots
+    models = rkhs.SVModel(_randn(gen, m, budget, d, dev=cuda),
+                          _randn(gen, m, budget, dev=cuda), ids.to(cuda))
+    ref_model = rkhs.SVModel(models.sv[0] + 0.5, models.alpha[0],
+                             models.sv_id[0])
+    ops.reset_launch_counts()
+    got = sub.dist_to_ref(models, ref_model)
+    assert ops.LAUNCH_COUNTS["quadform"] == 1
+    want = _dist_3m(models.sv, ref_model.sv, rkhs.masked_alpha(models),
+                    rkhs.masked_alpha(ref_model), kind="gaussian",
+                    gamma=0.05)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_rff_serve_stream_equals_engine_run(cuda, monkeypatch):
     """A short RFF serving run launches ``rff`` for its buckets, its

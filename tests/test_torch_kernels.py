@@ -11,6 +11,7 @@ tensors too: they must take the plain version and count no launch.
 The CUDA kernels themselves run only on the card: see
 tests/test_torch_cuda.py and ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,6 +131,71 @@ def test_rkhs_dist_sq_matches_pallas(kind, M, N, backend_parity, no_launches):
             for i in range(m)]
     got = ops.rkhs_dist_sq(*_t(F, G, af, ag), **kw)
     backend_parity(got.numpy(), np.asarray(want), f"rkhs_dist_sq {kind}")
+
+
+def _dist_args(seed, m, M, N, d=4):
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(m, M, d)).astype(np.float32)
+    af = rng.normal(size=(m, M)).astype(np.float32)
+    af[:, M // 2:] = 0.0                 # padded slots
+    G = rng.normal(size=(N, d)).astype(np.float32)
+    ag = rng.normal(size=(N,)).astype(np.float32)
+    return F, G, af, ag
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("M,N", [(129, 129), (129, 5)])
+@pytest.mark.parametrize("m", [1, 2, 32])
+def test_rkhs_dist_sq_matches_the_vmapped_reference(m, M, N, kind,
+                                                    backend_parity,
+                                                    no_launches):
+    """ops.rkhs_dist_sq over m learners = the reference's dynamic check
+    as src/repro/core/substrate.py:492 computes it: ``ops.rkhs_dist_sq``
+    vmapped over the learners with the reference model unbatched (its
+    <g, g> quadform computed once), Pallas in interpret mode; M == N
+    engaged (one launch on the card) and M != N."""
+    F, G, af, ag = _dist_args(m * 1000 + M + N, m, M, N)
+    kw = dict(kind=kind, gamma=0.3)
+    want = jax.vmap(lambda f, a: jops.rkhs_dist_sq(
+        f, jnp.asarray(G), a, jnp.asarray(ag), **kw))(jnp.asarray(F),
+                                                      jnp.asarray(af))
+    got = ops.rkhs_dist_sq(*_t(F, G, af, ag), **kw)
+    assert got.shape == (m,)
+    backend_parity(got.numpy(), np.asarray(want),
+                   f"rkhs_dist_sq {kind} m={m} M={M} N={N}")
+
+
+@pytest.mark.parametrize("M,N,groups", [(129, 129, "one"), (129, 5, "each"),
+                                        (5, 5, "each")])
+@pytest.mark.parametrize("m", [1, 2, 32])
+def test_rkhs_dist_sq_computes_gg_once(m, M, N, groups, monkeypatch):
+    """The forms handed to ``quadform``: engaged with one shape, one call
+    of P = 2m + 1 (<f_i, f_i>, <g, g> once, <f_i, g>); otherwise one call
+    per group, <g, g>'s of one form.  Either way the distances equal the
+    3m-form arrangement (<g, g> m times) bitwise, on the CPU path too."""
+    calls = []
+    real = tquad.quadform
+    monkeypatch.setattr(tquad, "quadform", lambda X, Y, a, b, **kw: (
+        calls.append((X.shape[0], tuple(X.shape[1:]), tuple(Y.shape[1:])))
+        or real(X, Y, a, b, **kw)))
+    F, G, af, ag = (torch.from_numpy(a) for a in _dist_args(7, m, M, N))
+    kw = dict(kind="gaussian", gamma=0.3)
+    got = ops.rkhs_dist_sq(F, G, af, ag, **kw)
+    engaged = ops.engages(M, N)
+    if groups == "one":
+        assert calls == [(2 * m + 1, (M, 4), (N, 4))]
+    else:
+        # the reference's per-form threshold: a group below 128 takes
+        # the plain expression and never reaches the wrapper
+        want = [(m, (M, 4), (M, 4)), (1, (N, 4), (N, 4)),
+                (m, (M, 4), (N, 4))]
+        assert calls == [c for c in want if ops.engages(c[1][0], c[2][0])]
+        assert engaged == bool(calls)
+    Gm, agm = G.expand(m, N, 4), ag.expand(m, N)
+    three = [ops.quadform(*g, **kw) for g in ((F, F, af, af),
+                                             (Gm, Gm, agm, agm),
+                                             (F, Gm, af, agm))]
+    assert torch.equal(got, three[0] + three[1] - 2.0 * three[2])
 
 
 @pytest.mark.parametrize("loss", ["hinge", "squared"])

@@ -114,3 +114,54 @@ def test_substrate_featurizes_through_rff_features_when_engaged(D,
     sub.predict_one(trff.RFFLearnerState(w=models.w[1], b=models.b[1]), x[1])
     sub.round_stacked(models, (x, torch.ones(3)))
     assert calls == ([(3, 6), (4, 6), (1, 6)] if D >= 128 else [])
+
+
+def _rows_per_thread_is_least(M, geo):
+    """R is the least of 1, 2, 4, 8 whose row tiles number at most the
+    ones wanted for about FILL_BLOCKS blocks (8 when none does)."""
+    want = -(-rff_kernel.FILL_BLOCKS // geo.col_tiles)
+    tiles = {R: -(-M // (rff_kernel.RFF_WARPS * R))
+             for R in rff_kernel.ROWS_PER_THREAD}
+    fits = [R for R in rff_kernel.ROWS_PER_THREAD if tiles[R] <= want]
+    return geo.rows_per_thread == (fits[0] if fits else 8)
+
+
+@pytest.mark.parametrize("axis", ["M", "D"])
+def test_rff_geometry_covers_every_element_once(axis):
+    """``rff_geometry`` (the wrapper's tile plan; csrc/rff.cu refuses any
+    R but 1, 2, 4, 8) for M, then D, from 1 to 5000 beside the other at
+    serving's and the edges' sizes: 32-column tiles cover [0, D) and
+    8 R-row tiles cover [0, M), each once (the tiles past the grid's y
+    extent: the next test); R is the least that gives about one block
+    per SM; the plan depends on M and D only."""
+    others = [1, 31, 32, 33, 130, 2048, 5000]
+    pairs = ([(n, o) for n in range(1, 5001) for o in others] if axis == "M"
+             else [(o, n) for n in range(1, 5001) for o in others])
+    for M, D in pairs:
+        geo = rff_kernel.rff_geometry(M, D)
+        cols = rff_kernel.RFF_COLS
+        rows = rff_kernel.RFF_WARPS * geo.rows_per_thread
+        assert geo.rows_per_thread in rff_kernel.ROWS_PER_THREAD
+        assert (geo.col_tiles - 1) * cols < D <= geo.col_tiles * cols
+        assert (geo.row_tiles - 1) * rows < M <= geo.row_tiles * rows
+        assert geo.grid == (geo.col_tiles,
+                            min(geo.row_tiles, rff_kernel.MAX_GRID_Y))
+        assert _rows_per_thread_is_least(M, geo), (M, D, geo)
+    # serving's buckets at D = 2048: 128 blocks from M = 16 on
+    for M, R in ((1, 1), (8, 1), (16, 1), (32, 2), (64, 4), (128, 8)):
+        geo = rff_kernel.rff_geometry(M, 2048)
+        assert geo.rows_per_thread == R, (M, geo)
+        if M >= 16:
+            assert geo.grid == (64, 2)
+
+
+def test_rff_geometry_takes_row_tiles_past_the_grid_in_a_loop():
+    """At M beyond 65535 row tiles the grid's y extent stops at 65535
+    and each block walks its tiles y, y + 65535, ...: every tile once."""
+    M = 8 * 8 * 65535 + 3 * 64 + 5          # 8 rows a thread at D = 32
+    geo = rff_kernel.rff_geometry(M, 32)
+    assert geo.rows_per_thread == 8 and geo.row_tiles == 65535 + 4
+    gy = geo.grid[1]
+    assert gy == rff_kernel.MAX_GRID_Y
+    seen = sorted(t for y in range(gy) for t in range(y, geo.row_tiles, gy))
+    assert seen == list(range(geo.row_tiles))

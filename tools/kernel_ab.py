@@ -12,10 +12,13 @@ drops kernel events once a second one is loaded) and measures on the
 same seeded inputs:
 
 - ``sv_predict`` gaussian at (B 32, N 1024, d 18) and at B 8, the RFF
-  ``primal_step`` at (B 32, D 2048, d 18) and the linear one at (B 1024,
-  d 18): ``ms`` and ``device_ms`` as ``chip_smoke.time_ms`` gives them,
-  and the same with the operands copied to start 4 bytes past a 16-byte
-  boundary (``*_off16``);
+  ``primal_step`` at (B 32, D 2048, d 18), the linear one at (B 1024,
+  d 18), ``rff`` at serving's buckets of M = 16, 32 and 64 rows (D 2048,
+  d 18; a bucket the first M rows of a 64-row X) and the dynamic
+  check's ``ops.rkhs_dist_sq`` (m = 32 learners against one model,
+  budget 1024, d 18; ``dist_check``): ``ms`` and ``device_ms`` as
+  ``chip_smoke.time_ms`` gives them, and the same with the operands
+  copied to start 4 bytes past a 16-byte boundary (``*_off16``);
 - ``gram`` at the SV sync's shape (M = N = 32768, d 18), gaussian and
   linear, and the sync's epsilon^2 = beta^T K beta over those rows by
   its two kernel routes: one ``quadform`` form (``sync_quadform``) and
@@ -30,6 +33,7 @@ same seeded inputs:
   (``fused.sv_predict`` / ``fused.primal_step``, no synchronize added).
 
 Each visit also gives a checksum of the outputs of the linear step, of
+``rff`` at each bucket (and off 16 bytes), of the dynamic check, of
 ``gram`` (both kinds) and of the sync's form on its inputs (the int64 sum
 of the output floats' bit patterns): equal checksums across trees say
 that a redesign kept a kernel's floats.
@@ -60,17 +64,6 @@ WRAPPERS = {"sv_periodic": "sv_predict", "sv_dynamic": "sv_predict",
 DEVICE = "cuda"
 
 
-def off16(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of t that starts 4 bytes past a 16-byte
-    boundary."""
-    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
-    start = (4 - flat.data_ptr() // 4 % 4) % 4 + 1
-    out = flat[start:start + t.numel()].view(t.shape)
-    out.copy_(t)
-    assert out.data_ptr() % 16 == 4
-    return out
-
-
 def inputs(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
 
@@ -86,6 +79,11 @@ def inputs(dev) -> dict:
                      scale=(2.0 / D) ** 0.5)),
         "linear": (randn(1024, d), torch.sign(randn(1024)),
                    0.1 * randn(1024, d), randn(1024)),
+        "rff_bucket": (randn(64, d), 0.3 * randn(D, d), 6.0 * randn(D)),
+        "dist": (randn(chip_smoke.M_KERNEL, chip_smoke.BUDGET, d),
+                 randn(chip_smoke.BUDGET, d),
+                 randn(chip_smoke.M_KERNEL, chip_smoke.BUDGET),
+                 randn(chip_smoke.BUDGET)),
     }
 
 
@@ -99,15 +97,27 @@ def kernel_times(fused, x) -> dict:
         "primal_step_rff": lambda: fused.primal_step(*args, **rkw),
         "primal_step_linear": lambda: fused.primal_step(*x["linear"]),
     }
-    SVo, Ao, Wo = off16(SV), off16(A), off16(rkw["W"])
+    SVo, Ao, Wo = (chip_smoke.off16(t) for t in (SV, A, rkw["W"]))
     calls.update({
         "sv_predict_off16": lambda: fused.sv_predict(X, SVo, Ao, **kw),
         "primal_step_rff_off16": lambda: fused.primal_step(
             *args, **dict(rkw, W=Wo)),
     })
+    from repro_torch.kernels import ops, rff
+    Xr, Wr, br = x["rff_bucket"]
+    for M in (16, 32, 64):
+        Xm, Xo = Xr[:M], chip_smoke.off16(Xr[:M])
+        calls[f"rff_m{M}"] = lambda Xm=Xm: rff.rff(Xm, Wr, br)
+        calls[f"rff_m{M}_off16"] = lambda Xo=Xo: rff.rff(Xo, Wr, br)
+    calls["dist_check"] = lambda: ops.rkhs_dist_sq(*x["dist"], kind="gaussian",
+                                                   gamma=chip_smoke.GAMMA)
     out = {name: chip_smoke.time_ms(fn) for name, fn in calls.items()}
-    out["checksums"] = {"primal_step_linear": checksum(
-        *calls["primal_step_linear"]())}
+    out["checksums"] = {}
+    for name in calls:
+        if name == "primal_step_linear" or name.startswith(("rff_", "dist")):
+            res = calls[name]()
+            out["checksums"][name] = checksum(
+                *(res if isinstance(res, tuple) else (res,)))
     return out
 
 

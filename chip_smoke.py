@@ -83,6 +83,22 @@ non-zero with no result line:
    equal wherever the plain run's top-2 margin exceeds twice the row's
    measured difference.
 
+7. ``async``: ``runtime.run_async_simulation`` on phase 3's learners
+   and stream: ``async_sv_dynamic`` (ideal network, alpha 1, its depth
+   cut to ``ASYNC_T_SV``), ``async_rff_wan`` (examples/async_susy.py's
+   lossy WAN, poly staleness) and ``async_linear_periodic`` (m = 1024,
+   depth cut to ``ASYNC_T_LINEAR``).  Each run must launch its kernels
+   (``sv_predict`` and ``quadform``; ``rff``), repeat bitwise in every
+   field, and the SV and RFF runs equal ``backend="reference"`` on the
+   card in sync rounds, bytes, the event clock's face and staleness,
+   losses within the parity pair; the SV run equals ``sv_dynamic``'s
+   ledger over its rounds (the zero-latency contract) and peaks under
+   1 GiB (an aggregate holds no Gram of its 2 n tau slots); the linear
+   run syncs every 10 rounds at ``sync_bytes_linear`` each.  Before the
+   runs, ``node_shapes`` times the kernels at a node's shapes:
+   ``sv_predict`` at B = 1, the node's check (3 forms of 1024^2, bitwise
+   three one-form launches) and the aggregate's 65,536^2 form.
+
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside this file, it
@@ -628,6 +644,98 @@ def check_rff(rffmod, ref, dev, gen):
         bound_ms(4 * (M * D_IN + D * D_IN + D + M * D), 2 * M * D * D_IN)
 
 
+def check_node_shapes(fused, ops, qf, ref, rff_by_bucket, dev, gen) -> dict:
+    """The asynchronous runtime's kernel shapes (one node at a time):
+    ``sv_predict`` at B = 1; the dynamic check ``ops.rkhs_dist_sq`` at
+    m = 1 (3 forms of 1024^2), bitwise the three one-form launches; the
+    SV aggregate's epsilon, one ``quadform`` form over the 65,536 slots
+    of a 32-model mix, against the plain in-place route (one 17.2 GB
+    Gram); ``rff`` at M = 1 (its bucket line).  Each timed beside its
+    plain version and bound.  Returns {kernel: {shape: numbers}}."""
+    from repro_torch.core import rkhs
+    from repro_torch.core.rkhs import KernelSpec
+    from repro_torch.data.streams import susy_stream
+
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    N = BUDGET
+    out = {}
+    # sv_predict: one row against a budget-N model
+    X = torch.randn(1, D_IN, generator=gen).to(dev)
+    SV = torch.randn(1, N, D_IN, generator=gen).to(dev)
+    A = torch.randn(1, N, generator=gen).to(dev)
+    err = close(fused.sv_predict(X, SV, A, **kw),
+                ref.sv_predict_ref(X, SV, A, **kw), "sv_predict B=1")
+    kern = time_ms(lambda: fused.sv_predict(X, SV, A, **kw))
+    plain = time_ms(lambda: ref.sv_predict_ref(X, SV, A, **kw))
+    out["sv_predict"] = {"B1_N1024": {
+        "ms": kern["ms"], "device_ms": kern["device_ms"],
+        "plain_ms": plain["ms"], "plain_device_ms": plain["device_ms"],
+        "bound_ms": bound_ms(4 * (D_IN + N * D_IN + N + 1),
+                             N * (4 * D_IN + 8))[0], "max_abs_err": err}}
+    # the node's dynamic check: 3 forms of N^2 in one launch
+    F = torch.randn(1, N, D_IN, generator=gen).to(dev)
+    G = torch.randn(N, D_IN, generator=gen).to(dev)
+    af = torch.randn(1, N, generator=gen).to(dev)
+    ag = torch.randn(N, generator=gen).to(dev)
+    af[:, N // 5:] = 0.0                  # padded slots
+    ops.reset_launch_counts()
+    got = ops.rkhs_dist_sq(F, G, af, ag, **kw)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}, ops.LAUNCH_COUNTS
+    one = [qf.quadform(Xp[None], Yp[None], ap[None], bp[None], **kw)[0]
+           for Xp, Yp, ap, bp in ((F[0], F[0], af[0], af[0]),
+                                  (G, G, ag, ag), (F[0], G, af[0], ag))]
+    assert torch.equal(got, (one[0] + one[1] - 2.0 * one[2])[None]), \
+        "rkhs_dist_sq at m = 1 differs from three one-form launches"
+
+    def dist_plain():
+        q = ref.quadform_ref(torch.stack([F[0], G, F[0]]),
+                             torch.stack([F[0], G, G]),
+                             torch.stack([af[0], ag, af[0]]),
+                             torch.stack([af[0], ag, ag]), **kw)
+        return q[0] + q[1] - 2.0 * q[2]
+
+    err = close(got[0], dist_plain(), "rkhs_dist_sq m=1")
+    kern = time_ms(lambda: ops.rkhs_dist_sq(F, G, af, ag, **kw))
+    plain = time_ms(dist_plain)
+    forms = {"ms": kern["ms"], "device_ms": kern["device_ms"],
+             "plain_ms": plain["ms"], "plain_device_ms": plain["device_ms"],
+             "bound_ms": bound_ms(
+                 4 * 3 * (2 * N * D_IN + 2 * N + 1),
+                 3 * (N * N * (2 * D_IN + 8) + 2 * N * 2 * D_IN))[0],
+             "max_abs_err": err, "bitwise_one_form_launches": True}
+    # the aggregate's epsilon: one form over 2 n tau = 65,536 SUSY rows
+    M = 2 * M_KERNEL * BUDGET
+    Xs, _ = susy_stream(BUDGET, 2 * M_KERNEL, d=D_IN, seed=0)
+    sv = torch.as_tensor(Xs.reshape(-1, D_IN), device=dev)
+    beta = (torch.randn(M, generator=gen) / M_KERNEL).to(dev)
+    spec = KernelSpec("gaussian", gamma=GAMMA)
+    ops.reset_launch_counts()
+    got = ops.quadform_spec(spec, sv[None], sv[None], beta[None],
+                            beta[None])[0]
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}, ops.LAUNCH_COUNTS
+    torch.cuda.empty_cache()
+    err = close(got, rkhs.quadform_(rkhs.gram(spec, sv, sv), beta, beta),
+                "quadform P=1 M=N=65536")
+    torch.cuda.empty_cache()
+    kern = time_ms(lambda: ops.quadform_spec(spec, sv[None], sv[None],
+                                             beta[None], beta[None]),
+                   iters=10, warmup=2)
+    plain = time_ms(lambda: rkhs.quadform_(rkhs.gram(spec, sv, sv), beta,
+                                           beta), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    out["quadform"] = {"dist_one_P3_1024sq": forms, "aggregate_P1_65536sq": {
+        "ms": kern["ms"], "device_ms": kern["device_ms"],
+        "plain_ms": plain["ms"], "plain_device_ms": plain["device_ms"],
+        "bound_ms": bound_ms(4 * (2 * M * D_IN + 2 * M + 1),
+                             M * M * (2 * D_IN + 8) + 2 * M * 2 * D_IN)[0],
+        "max_abs_err": err, "value": float(got)}}
+    b1 = rff_by_bucket[1]
+    out["rff"] = {"M1_D2048": {k: b1[k] for k in (
+        "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms")}}
+    emit({"phase": "node_shapes", **out})
+    return out
+
+
 def bucket_weighted(by_bucket: dict, counts: dict) -> dict:
     """The mean of each number of ``by_bucket`` over a serving run's
     launches: ``counts`` maps a bucket size to its launches."""
@@ -840,7 +948,8 @@ def e2e_configs():
 
 def _recording(sub, dists: list):
     """``sub`` with every distance its dynamic check computes appended
-    to ``dists`` (numbers unchanged: the check already reads the device)."""
+    to ``dists`` (numbers unchanged: the check already reads the
+    device): the engine's stacked check and an async node's."""
     base = type(sub)
 
     class Recording(base):
@@ -849,15 +958,24 @@ def _recording(sub, dists: list):
             dists.append(d.cpu().numpy().copy())
             return d
 
+        def dist_one(self, model, ref):
+            d = base.dist_one(self, model, ref)
+            dists.append(d.cpu().numpy().reshape(1))
+            return d
+
     return Recording(**{f.name: getattr(sub, f.name)
                         for f in dataclasses.fields(sub)})
 
 
 def _device_seconds(prof) -> collections.Counter:
+    """Device seconds of every CUDA activity a profile recorded, by
+    name: read from the profiler's own event records, because building
+    ``prof.events()`` takes the host minutes for the millions of kernels
+    of an async run's node rounds."""
     by_kernel: collections.Counter = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name[:60]] += e.time_range.elapsed_us() / 1e6
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name()[:60]] += e.duration_ns() / 1e9
     return by_kernel
 
 
@@ -1220,6 +1338,165 @@ def run_serving(ops, totals, runs) -> dict:
               "event_clock_wall": got.wall_clock})
         bucket_counts[name] = dict(got.bucket_counts)
     return bucket_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the asynchronous runtime (run_async_simulation) at full width
+# ---------------------------------------------------------------------------
+
+#: the async runs' depths, cut from T_ROUNDS to keep the script inside its
+#: time limit: every node round is one learner's round in the host's
+#: event loop (SV: 16,000 node rounds in each of three runs; linear,
+#: m = 1024: 51,200 in each of two), and the profiled repeat is the
+#: slowest of a run's passes
+ASYNC_T_SV = 500
+ASYNC_T_LINEAR = 50
+#: fields of an async run that must be equal across backends: the
+#: protocol's decisions, the byte ledger and the event clock's face
+ASYNC_EQUAL = ("sync_rounds", "num_syncs", "cumulative_bytes",
+               "total_bytes", "link_bytes", "wall_clock",
+               "barrier_wall_clock", "num_dropped", "events_processed",
+               "mean_staleness", "max_staleness")
+
+
+def async_configs():
+    """(name, learner, m, T, async protocol, system, kernels it must
+    launch, phase-3 run whose ledger (its first T rounds) it must equal,
+    or None)."""
+    from repro_torch.runtime import AsyncProtocolConfig, SystemConfig
+    learners = {name: learner for name, learner, *_ in e2e_configs()}
+    # examples/async_susy.py's "WAN + 5% message loss"
+    wan = SystemConfig(seed=0, compute_jitter=0.3, straggler_frac=0.25,
+                       straggler_mult=4.0, straggler_prob=0.3,
+                       drop_prob=0.05, base_latency=0.5, latency_jitter=0.5,
+                       bandwidth=1e5)
+    return [
+        ("async_sv_dynamic", learners["sv_dynamic"], M_KERNEL, ASYNC_T_SV,
+         AsyncProtocolConfig(kind="dynamic", delta=16.0, mini_batch=10,
+                             alpha=1.0, staleness="constant"),
+         SystemConfig(), ("sv_predict", "quadform"), "sv_dynamic"),
+        ("async_rff_wan", learners["rff_dynamic"], M_KERNEL, T_ROUNDS,
+         AsyncProtocolConfig(kind="dynamic", delta=9.0, mini_batch=10,
+                             alpha=0.6, staleness="poly", stale_a=0.5,
+                             agg_window=1.0),
+         wan, ("rff",), None),
+        ("async_linear_periodic", learners["linear_periodic"], M_LINEAR,
+         ASYNC_T_LINEAR, AsyncProtocolConfig(kind="periodic", period=10),
+         SystemConfig(), (), None),
+    ]
+
+
+def run_async(ops, totals, runs) -> None:
+    """``run_async_simulation`` at full width (``async_configs``), each
+    run under ``backend="kernels"``, then (SV, RFF) under
+    ``"reference"`` on the card, then a profiled repeat that must equal
+    the first run bitwise in every field."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import accounting, substrate
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.runtime import run_async_simulation
+
+    for name, learner, m, T, acfg, sys_cfg, kernels, e2e in async_configs():
+        # the first T rounds of phase 3's stream
+        X, Y = (a[:T] for a in susy_stream(T_ROUNDS, m, d=D_IN, seed=0))
+        kw = dict(sys_cfg=sys_cfg, record_divergence=False, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run_async_simulation(learner, acfg, X, Y, backend="kernels",
+                                   **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            assert counts.get(k, 0) > 0, f"{name}: {k} never launched"
+            totals[k] = totals.get(k, 0) + counts[k]
+        assert got.cumulative_loss.shape == (T,), name
+        assert np.all(np.isfinite(got.cumulative_loss)), name
+        if e2e is not None:
+            # the zero-latency contract: the engine's sync rounds and
+            # bytes over the same rounds (a round's decision depends on
+            # the rounds up to it only)
+            rounds = runs[e2e].sync_rounds
+            rounds = rounds[rounds < T]
+            assert np.array_equal(got.sync_rounds, rounds), \
+                f"{name}: sync rounds differ from {e2e}'s"
+            assert got.num_syncs == len(rounds) > 0, name
+            assert np.array_equal(got.cumulative_bytes,
+                                  runs[e2e].cumulative_bytes[:T]), name
+        if name.startswith("async_sv"):
+            # the aggregate compresses through quadform: no Gram of the
+            # 2 n tau slots of its mix (17.2 GB under "reference")
+            assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
+        line = {}
+        if kernels:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            want = run_async_simulation(learner, acfg, X, Y,
+                                        backend="reference", **kw)
+            torch.cuda.synchronize()
+            line["reference_wall_s"] = time.perf_counter() - t0
+            line["reference_max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated()
+            for field in ASYNC_EQUAL:
+                assert np.array_equal(getattr(got, field),
+                                      getattr(want, field)), \
+                    f"{name}: {field} differs from the reference backend"
+            np.testing.assert_allclose(
+                got.cumulative_loss, want.cumulative_loss, rtol=PARITY_RTOL,
+                atol=PARITY_ATOL, err_msg=name)
+            np.testing.assert_allclose(
+                got.eps_history, want.eps_history, rtol=PARITY_RTOL,
+                atol=PARITY_ATOL, err_msg=name)
+            line.update(reference_total_loss=want.total_loss,
+                        reference_wall_s_per_round=line[
+                            "reference_wall_s"] / (T * m))
+        if acfg.kind == "periodic":
+            sync_bytes = accounting.sync_bytes_linear(D_IN + 1, m)
+            assert got.num_syncs == T // acfg.period, name
+            assert np.array_equal(got.sync_rounds, np.arange(
+                acfg.period - 1, T, acfg.period, dtype=np.int64)), name
+            assert got.total_bytes == got.num_syncs * sync_bytes, name
+        # the repeat: profiled, its checks' distances recorded
+        dists: list = []
+        sub = _recording(substrate.substrate_of(
+            learner, backend="kernels"), dists)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = run_async_simulation(sub, acfg, X, Y, **kw)
+            torch.cuda.synchronize()
+        for field in dataclasses.fields(got):
+            assert np.array_equal(getattr(got, field.name),
+                                  getattr(again, field.name)), \
+                f"{name}: repeated run differs in {field.name}"
+        by_kernel = _device_seconds(prof)
+        device_s = sum(by_kernel.values())
+        if acfg.kind == "dynamic":
+            d = np.concatenate(dists)
+            line.update(checks=len(d), delta=acfg.delta,
+                        dist_quantiles=np.quantile(
+                            d, [0.0, 0.5, 0.9, 1.0]).tolist(),
+                        min_margin_to_delta=float(np.min(np.abs(
+                            d - acfg.delta))))
+        emit({"phase": "async", "run": name, "m": m, "T": T,
+              "kernel_launches": counts, "wall_s": secs,
+              "node_rounds_per_wall_s": T * m / secs,
+              "events_processed": got.events_processed,
+              "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
+              "total_loss": got.total_loss,
+              "error_rate": float(got.cumulative_errors[-1]) / (T * m),
+              "sim_wall_clock": got.wall_clock,
+              "barrier_wall_clock": got.barrier_wall_clock,
+              "speedup_vs_barrier": got.speedup_vs_barrier,
+              "num_dropped": got.num_dropped,
+              "mean_staleness": got.mean_staleness,
+              "max_staleness": got.max_staleness,
+              "max_memory_allocated": peak,
+              "device_s": device_s, "device_busy_share": device_s / secs,
+              "top_kernels_s": dict(by_kernel.most_common(5)),
+              "port_kernels_s": _port_seconds(by_kernel), **line})
 
 
 # ---------------------------------------------------------------------------
@@ -1695,6 +1972,8 @@ def main() -> int:
               **{k: v for k, v in results[name].items() if k != "errs"},
               **({"earlier": EARLIER[name]} if name in EARLIER else {})})
         torch.cuda.empty_cache()
+    node_shapes = check_node_shapes(fused, ops, qf, ref,
+                                    results["rff"]["by_bucket"], dev, gen)
     torch.cuda.synchronize()
 
     # the runs use deterministic algorithms (after the kernel timings:
@@ -1707,6 +1986,7 @@ def main() -> int:
     runs: dict = {}
     run_e2e(ops, totals, runs)
     bucket_counts = run_serving(ops, totals, runs)
+    run_async(ops, totals, runs)
     # rff's line at the main path's mix of bucket sizes
     rff_line = results["rff"]
     counts = bucket_counts["serve_rff_dynamic"]
@@ -1765,7 +2045,10 @@ def main() -> int:
                                  # bucket sizes
                                  "weighted_by", "weighted_ms",
                                  "weighted_device_ms", "weighted_plain_ms",
-                                 "weighted_bound_ms") if k in r}})
+                                 "weighted_bound_ms") if k in r},
+            # the asynchronous runtime's one-node shapes
+            **({"node_shapes": node_shapes[name]} if name in node_shapes
+               else {})})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,10 @@ Designated-coordinator topology with the trivial reduction strategy:
   download(coordinator -> learner i):  |Sbar_t| B_alpha +  |Sbar_t \\ S_t^i| B_x
 
 Linear and random-feature models pay m uploads + m downloads of a
-fixed-size vector.  ``allreduce_bytes`` / ``allgather_bytes`` price the
-ring collectives of ``topology="allreduce"``.
+fixed-size vector.  ``kernel_payload_bytes`` / ``linear_payload_bytes``
+size one message of the asynchronous runtime (a link's share of the
+same sums).  ``allreduce_bytes`` / ``allgather_bytes`` price the ring
+collectives of ``topology="allreduce"``.
 
 ``device_sync_bytes_kernel`` runs the same set algebra on the device
 over sorted int32 id arrays.  The port keeps the byte count in int64,
@@ -70,6 +72,20 @@ def sync_bytes_linear(num_params: int, m: int, dtype_bytes: int = 4) -> int:
     """m uploads + m downloads of a fixed-size weight vector (also the
     RFF substrate's cost with num_params = D + 1)."""
     return 2 * m * num_params * dtype_bytes
+
+
+def kernel_payload_bytes(bm: ByteModel, send_ids: set,
+                         receiver_known: set) -> int:
+    """Bytes to ship an expansion over ``send_ids`` to a receiver that
+    already caches ``receiver_known``: every coefficient, only novel
+    support vectors (the Sec. 3 delta encoding of one link)."""
+    return (len(send_ids) * bm.B_alpha
+            + len(send_ids - receiver_known) * bm.B_x)
+
+
+def linear_payload_bytes(num_params: int, dtype_bytes: int = 4) -> int:
+    """Dense weight vectors have no identity structure: full re-send."""
+    return num_params * dtype_bytes
 
 
 def allreduce_bytes(num_params: int, m: int, dtype_bytes: int = 4) -> int:

@@ -193,3 +193,25 @@ def linear_update(cfg: LearnerConfig, state: LinearLearnerState,
         b = state.b + tau_pa * direction
     return LinearLearnerState(w=w, b=b), ell
 
+
+# ---------------------------------------------------------------------------
+# Uniform entry points (one learner, as the asynchronous runtime's nodes
+# hold them; the updates above take unbatched states too)
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: LearnerConfig, learner_id: int = 0, *, device=None):
+    if cfg.is_kernel:
+        return init_kernel_state(cfg, learner_id, device=device)
+    return init_linear_state(cfg, device=device)
+
+
+def update(cfg: LearnerConfig, state, example):
+    if cfg.is_kernel:
+        return kernel_update(cfg, state, example)
+    return linear_update(cfg, state, example)
+
+
+def gamma_of(cfg: LearnerConfig) -> float:
+    """The loss-proportionality constant of Thm. 4's bound."""
+    return cfg.eta if cfg.algo.endswith("sgd") else min(cfg.C, 1.0)

@@ -35,15 +35,27 @@ is :func:`_rowsum`, a fixed pairwise tree, because PyTorch's CUDA
 reduction splits a row among a number of threads that depends on the
 row count.
 
-Not ported yet (ROADMAP.md): the node face (runtime) and the masked
-faces (population).
+The node face (one model per node, the asynchronous runtime's
+``runtime/nodes.py``): ``init_node / node_model / update_one /
+predict_one / dist_one / init_reference / upload_payload /
+download_payload_bytes / aggregate / adopt_node`` and the snapshot
+hooks of ``runtime/harness.py``, composed as the reference composes a
+node round: SV unfused (the error record from ``predict_one``, the
+update with its own plain prediction), RFF fused (one featurization of
+the row for both), linear plain.  Under ``"kernels"`` a node round
+launches ``sv_predict`` or ``rff`` on one row, the dynamic check one
+``quadform`` launch of 3 forms, and an SV aggregate one ``quadform``
+form over the 2 n tau slots of its mix (no Gram).
+
+Not ported yet (ROADMAP.md): the masked faces (population).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from . import accounting, compression, learners, rff, rkhs
@@ -174,6 +186,85 @@ class Substrate:
             raise ValueError(
                 f"stream dim {d} != substrate dim {self.input_dim}")
 
+    # -- node face ----------------------------------------------------------
+
+    def init_node(self, idx: int, device):
+        raise NotImplementedError
+
+    def node_model(self, state):
+        return state
+
+    def update_one(self, state, example):
+        """One learner's update -> (new_state, loss)."""
+        raise NotImplementedError
+
+    def dist_one(self, model, ref) -> torch.Tensor:
+        """||model - ref||^2, a 0-dim tensor."""
+        raise NotImplementedError
+
+    # a substrate whose predict and update share work (the RFF feature
+    # map) sets fused_node_round and implements round_one as one
+    # computation; otherwise a node round is predict_one + update_one
+    fused_node_round: bool = False
+
+    def round_one(self, state, example):
+        """One node round -> (new_state, loss, yhat_pre_update)."""
+        raise NotImplementedError
+
+    def init_reference(self, device):
+        raise NotImplementedError
+
+    def upload_payload(self, bm: accounting.ByteModel, state,
+                       known: Set[int]):
+        """(model, ids, nbytes) of a learner -> coordinator upload."""
+        raise NotImplementedError
+
+    def download_payload_bytes(self, bm: accounting.ByteModel,
+                               union: Set[int], receiver_ids: Set[int]) -> int:
+        raise NotImplementedError
+
+    def aggregate(self, reference, models: Sequence, weights: Sequence[float]):
+        """Staleness-weighted aggregation -> (fsync, eps | None, union)."""
+        raise NotImplementedError
+
+    def adopt_node(self, state, fsync):
+        raise NotImplementedError
+
+    # -- the asynchronous harness's snapshot hooks (host buffers) -----------
+
+    def snapshot_buffers(self, T: int, m: int) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def write_snapshot(self, bufs, t: int, i: int, model) -> None:
+        raise NotImplementedError
+
+    def divergence_series(self, bufs, device) -> np.ndarray:
+        raise NotImplementedError
+
+
+class NodeOps(NamedTuple):
+    """Per-node compute, shared by every node of a run.  ``round`` is
+    one learner round -> (new_state, loss, yhat), yhat the pre-update
+    prediction the harness measures service errors with."""
+
+    update: Any
+    predict: Any
+    dist: Any
+    round: Any
+
+
+def node_ops(sub: Substrate) -> NodeOps:
+    """The node face as plain callables (the reference jits them)."""
+    if sub.fused_node_round:
+        rnd = sub.round_one
+    else:
+        def rnd(state, example):
+            yhat = sub.predict_one(sub.node_model(state), example[0])
+            new_state, loss = sub.update_one(state, example)
+            return new_state, loss, yhat
+    return NodeOps(update=sub.update_one, predict=sub.predict_one,
+                   dist=sub.dist_one, round=rnd)
+
 
 # ---------------------------------------------------------------------------
 # SV substrate (dual RKHS expansion)
@@ -298,6 +389,112 @@ class SVSubstrate(Substrate):
         slot = bm.B_x + bm.dtype_bytes
         return accounting.allgather_bytes(self.lcfg.budget * slot, m)
 
+    # -- node face ----------------------------------------------------------
+
+    def init_node(self, idx: int, device) -> KernelLearnerState:
+        return learners.init_state(self.lcfg, idx, device=device)
+
+    def node_model(self, state):
+        return state.model
+
+    def update_one(self, state, example):
+        # computes its own plain prediction (learners.kernel_update), as
+        # the reference's unfused node round does
+        return learners.update(self.lcfg, state, example)
+
+    def dist_one(self, model: SVModel, ref: SVModel) -> torch.Tensor:
+        # engaged: one quadform launch of 3 forms (ops.rkhs_dist_sq at m = 1)
+        if self.backend == "kernels" and _kops().engages(model.budget,
+                                                          ref.budget):
+            return _kops().rkhs_dist_sq_spec(
+                self.lcfg.kernel, model.sv[None], ref.sv,
+                rkhs.masked_alpha(model)[None], rkhs.masked_alpha(ref))[0]
+        return rkhs.dist_sq(self.lcfg.kernel, model, ref)
+
+    def init_reference(self, device) -> SVModel:
+        ref, _ = compression.compress(
+            self.lcfg.kernel,
+            rkhs.empty_model(self.lcfg.budget, self.lcfg.dim, device=device),
+            self.sync_budget, self.compress_method, backend=self.backend)
+        return ref
+
+    def upload_payload(self, bm, state, known):
+        ids = accounting.idset(state.model.sv_id.cpu().numpy())
+        return (state.model, ids,
+                accounting.kernel_payload_bytes(bm, ids, known))
+
+    def download_payload_bytes(self, bm, union, receiver_ids):
+        return accounting.kernel_payload_bytes(bm, union, receiver_ids)
+
+    def aggregate(self, reference, models, weights):
+        """Staleness-weighted RKHS aggregation (FedAsync style).
+
+        candidate_k = (1 - w_k) r + w_k f_k; the new reference is the
+        mean of the candidates compressed to the sync budget.  In an
+        RKHS the convex combination is the concatenation of the
+        coefficient-scaled expansions, built on the device; exact-zero
+        coefficients are pruned, so with every w_k = 1 the mix holds
+        ``rkhs.average_stacked``'s active slots in its order with its
+        floats, and compresses to the same model.  The compression
+        takes this substrate's backend: under ``"kernels"`` epsilon is
+        one quadform form over the 2 n tau slots (no Gram).
+        """
+        n = len(models)
+        assert n == len(weights) and n > 0
+        parts = []
+        for f, w in zip(models, weights):
+            parts.append((reference, 1.0 - w))
+            parts.append((f, w))
+        mix = _concat_sv(parts)
+        # the mean over candidates: a division (not a multiplication by
+        # 1/n), as average_stacked divides by m
+        mix = mix._replace(alpha=mix.alpha / n)
+        union = accounting.idset(mix.sv_id.cpu().numpy())
+        fsync, eps = compression.compress(
+            self.lcfg.kernel, mix, self.sync_budget, self.compress_method,
+            backend=self.backend)
+        return fsync, float(eps), union
+
+    def adopt_node(self, state, fsync: SVModel):
+        return state._replace(model=rkhs.pad_to_budget(fsync,
+                                                       self.lcfg.budget))
+
+    def snapshot_buffers(self, T, m):
+        tau, d = self.lcfg.budget, self.lcfg.dim
+        return {"sv": np.zeros((T, m, tau, d), np.float32),
+                "alpha": np.zeros((T, m, tau), np.float32),
+                "sv_id": -np.ones((T, m, tau), np.int32)}
+
+    def write_snapshot(self, bufs, t, i, model: SVModel):
+        bufs["sv"][t, i] = model.sv.cpu().numpy()
+        bufs["alpha"][t, i] = model.alpha.cpu().numpy()
+        bufs["sv_id"][t, i] = model.sv_id.cpu().numpy()
+
+    def divergence_series(self, bufs, device):
+        return np.asarray([float(self.divergence(SVModel(
+            sv=torch.as_tensor(bufs["sv"][t], device=device),
+            alpha=torch.as_tensor(bufs["alpha"][t], device=device),
+            sv_id=torch.as_tensor(bufs["sv_id"][t], device=device))))
+            for t in range(bufs["sv"].shape[0])])
+
+
+def _concat_sv(parts: Sequence[Tuple[SVModel, float]]) -> SVModel:
+    """Concatenate coefficient-scaled expansions; prune exact zeros.
+
+    Each part's coefficients times ``np.float32(w)`` in float32, as the
+    reference scales them; a pruned slot (alpha == 0 or inactive) gets
+    id -1, zero vector and coefficient +0.
+    """
+    sv = torch.cat([model.sv for model, _ in parts])
+    alpha = torch.cat([model.alpha * float(np.float32(w))
+                       for model, w in parts])
+    sv_id = torch.cat([model.sv_id for model, _ in parts])
+    dead = (alpha == 0.0) | (sv_id < 0)
+    return SVModel(
+        sv=torch.where(dead[:, None], torch.zeros_like(sv), sv),
+        alpha=torch.where(dead, torch.zeros_like(alpha), alpha),
+        sv_id=torch.where(dead, torch.full_like(sv_id, -1), sv_id))
+
 
 # ---------------------------------------------------------------------------
 # Primal substrates share the (w, b) average, distance and accounting
@@ -345,6 +542,55 @@ class _PrimalSubstrate(Substrate):
 
     def allreduce_sync_bytes(self, m: int) -> int:
         return accounting.allreduce_bytes(self.num_params, m)
+
+    # -- node face ----------------------------------------------------------
+
+    def dist_one(self, model, ref) -> torch.Tensor:
+        return torch.sum((model.w - ref.w) ** 2) + (model.b - ref.b) ** 2
+
+    def upload_payload(self, bm, state, known):
+        return (state, set(),
+                accounting.linear_payload_bytes(self.num_params,
+                                                bm.dtype_bytes))
+
+    def download_payload_bytes(self, bm, union, receiver_ids):
+        return accounting.linear_payload_bytes(self.num_params,
+                                               bm.dtype_bytes)
+
+    def aggregate(self, reference, models, weights):
+        """Mean over candidates (1 - w_k) r + w_k f_k in weight space,
+        accumulated in float64 in arrival order, as the reference does
+        in numpy (the same IEEE double operations in the same order),
+        then rounded to float32."""
+        n = len(models)
+        assert n == len(weights) and n > 0
+        cls = self._state_cls()
+        rw, rb = reference.w.double(), reference.b.double()
+        w_acc, b_acc = torch.zeros_like(rw), torch.zeros_like(rb)
+        for st, wt in zip(models, weights):
+            w_acc += (1.0 - wt) * rw + wt * st.w.double()
+            b_acc += (1.0 - wt) * rb + wt * st.b.double()
+        return cls(w=(w_acc / n).float(), b=(b_acc / n).float()), None, set()
+
+    def adopt_node(self, state, fsync):
+        cls = self._state_cls()
+        return cls(w=fsync.w, b=fsync.b)
+
+    def snapshot_buffers(self, T, m):
+        return {"w": np.zeros((T, m, self.num_params - 1), np.float32),
+                "b": np.zeros((T, m), np.float32)}
+
+    def write_snapshot(self, bufs, t, i, st):
+        bufs["w"][t, i] = st.w.cpu().numpy()
+        bufs["b"][t, i] = float(st.b)
+
+    def divergence_series(self, bufs, device):
+        # host numpy, as the reference's
+        snap_w, snap_b = bufs["w"], bufs["b"]
+        wbar = snap_w.mean(axis=1, keepdims=True)      # (T, 1, D)
+        bbar = snap_b.mean(axis=1, keepdims=True)      # (T, 1)
+        return (((snap_w - wbar) ** 2).sum(-1)
+                + (snap_b - bbar) ** 2).mean(axis=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,6 +646,15 @@ class LinearSubstrate(_PrimalSubstrate):
         yhat = self.predict(state, x)
         new_state, ell = self.update(state, example)
         return new_state, ell, yhat
+
+    def init_node(self, idx: int, device) -> LinearLearnerState:
+        return learners.init_state(self.lcfg, idx, device=device)
+
+    def update_one(self, state, example):
+        return learners.update(self.lcfg, state, example)
+
+    def init_reference(self, device) -> LinearLearnerState:
+        return learners.init_linear_state(self.lcfg, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -488,6 +743,29 @@ class RFFSubstrate(_PrimalSubstrate):
             return RFFLearnerState(w=w_new, b=b_new), ell, yhat
         # one shared featurize, the exact predict and update expressions
         return self._round_with_features(state, self._phi(x), y)
+
+    def init_node(self, idx: int, device) -> RFFLearnerState:
+        return rff.init_state(self.spec, device=device)
+
+    def _node_round(self, state, x, y):
+        # one featurization of the row (one rff launch of M = 1 when
+        # engaged) feeds the prediction and the update: the stacked
+        # round on a stack of one
+        new, ell, yhat = self._round_with_features(
+            _stack_one(state), self._phi(x[None]), y[None])
+        return RFFLearnerState(w=new.w[0], b=new.b[0]), ell[0], yhat[0]
+
+    def update_one(self, state, example):
+        new_state, ell, _ = self._node_round(state, *example)
+        return new_state, ell
+
+    fused_node_round = True
+
+    def round_one(self, state, example):
+        return self._node_round(state, *example)
+
+    def init_reference(self, device) -> RFFLearnerState:
+        return rff.init_state(self.spec, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -622,3 +622,98 @@ def test_lm_flash_prefill_matches_plain_and_serves(cuda):
     assert [r.uid for r in out] == [0, 1, 2]
     assert all(len(r.output) == 4 for r in out)
     assert ops.LAUNCH_COUNTS["flash"] == 2 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The node face (the asynchronous runtime's one-model calls)
+# ---------------------------------------------------------------------------
+
+
+def _sv_node_sub(budget=1024, d=18):
+    from repro_torch.core import substrate
+    return substrate.substrate_of(
+        LearnerConfig(budget=budget, dim=d, kernel=KernelSpec(gamma=0.05)),
+        backend="kernels")
+
+
+def _sv_models(gen, n, budget, d, dev, first_id=0):
+    from repro_torch.core import rkhs
+    ids = torch.arange(first_id, first_id + n * budget,
+                       dtype=torch.int32).view(n, budget)
+    ids[:, budget - budget // 5:] = -1          # empty slots
+    return rkhs.SVModel(_randn(gen, n, budget, d, dev=dev),
+                        _randn(gen, n, budget, dev=dev), ids.to(dev))
+
+
+@pytest.mark.cuda
+def test_sv_predict_one_is_its_row_of_a_bucket_bitwise(cuda):
+    """A node's ``predict_one`` (one ``sv_predict`` launch of one row)
+    equals row i of a 64-row ``predict_batch`` bitwise."""
+    gen = torch.Generator().manual_seed(70)
+    sub, m = _sv_node_sub(), 8
+    models = _sv_models(gen, m, 1024, 18, cuda)
+    lids = torch.randint(0, m, (64,), generator=gen).to(cuda)
+    Xb = _randn(gen, 64, 18, dev=cuda)
+    ops.reset_launch_counts()
+    batch = sub.predict_batch(models, lids, Xb)
+    for i in range(64):
+        one = type(models)(*(v[lids[i]] for v in models))
+        assert torch.equal(sub.predict_one(one, Xb[i]), batch[i]), i
+    assert ops.LAUNCH_COUNTS["sv_predict"] == 65
+
+
+@pytest.mark.cuda
+def test_dist_one_is_three_single_form_launches_bitwise(cuda):
+    """The node's dynamic check: ``dist_one`` runs one ``quadform``
+    launch of 3 forms (``ops.rkhs_dist_sq`` at m = 1), bitwise
+    <f, f> + <g, g> - 2 <f, g> from three one-form launches."""
+    from repro_torch.core import rkhs
+    gen = torch.Generator().manual_seed(71)
+    sub = _sv_node_sub()
+    f, g = (type(m)(*(v[0] for v in m))
+            for m in (_sv_models(gen, 1, 1024, 18, cuda),
+                      _sv_models(gen, 1, 1024, 18, cuda, first_id=5000)))
+    ops.reset_launch_counts()
+    got = sub.dist_one(f, g)
+    assert ops.LAUNCH_COUNTS["quadform"] == 1
+    af, ag = rkhs.masked_alpha(f)[None], rkhs.masked_alpha(g)[None]
+    kw = dict(kind="gaussian", gamma=0.05)
+    one = [ops.quadform(X[None], Y[None], a, b, **kw)[0]
+           for X, Y, a, b in ((f.sv, f.sv, af, af), (g.sv, g.sv, ag, ag),
+                              (f.sv, g.sv, af, ag))]
+    assert torch.equal(got, one[0] + one[1] - 2.0 * one[2])
+
+
+@pytest.mark.cuda
+def test_sv_aggregate_at_full_width_keeps_the_reference_model(cuda):
+    """The coordinator's aggregate of 32 budget-1024 models (a mix of
+    65,536 slots) under ``"kernels"``: epsilon from one ``quadform`` form
+    and no Gram, so it adds at most 1 GiB to the device's peak; the
+    same kept model, bitwise, and the same union as ``"reference"``
+    (whose plain Gram is 17.2 GB), epsilon within the parity pair."""
+    import dataclasses
+    gen = torch.Generator().manual_seed(72)
+    sub = _sv_node_sub()
+    n = 32
+    stack = _sv_models(gen, n, 1024, 18, cuda)
+    models = [type(stack)(*(v[i] for v in stack)) for i in range(n)]
+    ref_model = type(stack)(*(v[0] for v in _sv_models(
+        gen, 1, 1024, 18, cuda, first_id=10 ** 6)))
+    weights = [0.6 + 0.01 * i for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    got, eps, union = sub.aggregate(ref_model, models, weights)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert ops.LAUNCH_COUNTS == {"quadform": 1}, dict(ops.LAUNCH_COUNTS)
+    assert peak <= 1 << 30, peak
+    plain = dataclasses.replace(sub, backend="reference")
+    want, ref_eps, ref_union = plain.aggregate(ref_model, models, weights)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert union == ref_union and len(union) == n * 820 + 820
+    np.testing.assert_allclose(eps, ref_eps, rtol=PARITY_RTOL,
+                               atol=PARITY_ATOL)

@@ -99,8 +99,41 @@ non-zero with no result line:
    ``sv_predict`` at B = 1, the node's check (3 forms of 1024^2, bitwise
    three one-form launches) and the aggregate's 65,536^2 form.
 
+8. ``sweep``: ``engine.sweep`` on phase 3's learners and stream, each
+   grid's configs stacked on one axis of n m rows (one round launch a
+   round): ``sweep_sv_dynamic`` (``SV_SWEEP``: delta 8 to 64 x
+   mini_batch 5, 10), ``sweep_rff_dynamic`` (``RFF_SWEEP``: delta 2.25
+   to 18 x mini_batch 5, 10) and ``sweep_linear_mixed`` (m = 1024:
+   periodic 50, periodic 10, dynamic 0.1 / 10, continuous).  Anchor
+   rows equal phase 3's runs bitwise in every field (the SV (16, 10),
+   RFF (9, 10) and periodic-50 rows), and two more SV rows (delta 64 /
+   mini_batch 5 and the row with the most syncs) their solo
+   ``engine.run``; every grid equals ``backend="reference"`` on the
+   card in sync rounds and bytes, floats within the parity pair, and a
+   profiled repeat bitwise; the SV sweep peaks under 1 GiB.  Before
+   the runs, ``slice_shapes`` times the kernels at these shapes:
+   ``sv_predict`` at B = 256, the grouped check (8 configs' 2m + 1
+   forms of 1024^2 in one launch, each bitwise its own launch), the
+   RFF step at B = 256 and the linear step at B = 10^5, D = 4.
+9. ``population``: ``population.run_population`` at
+   benchmarks/bench_population.py's scale (linear hinge, d = 4,
+   ``separable_stream(seed=0, margin=0.5)``): 100,000 learners at
+   sample rates 0.1, 0.5, 1.0 (periodic 3, T = 40; every byte column
+   equal to the closed-form Sec. 3 oracle, bytes rising strictly with
+   the rate, ``monitor_population``'s byte series integer-exact, the
+   rate-1.0 run bitwise ``engine.run``), the default class mix under
+   churn (dynamic delta 200), 10^6 learners (T = 6); then phase 3's SV
+   learners under churn (``PopulationSpec(m_total=32, sample_rate=0.8,
+   seed=3)``, T = 1000) under ``sv_dynamic``'s and ``sv_periodic``'s
+   protocols, each against ``backend="reference"``: equal sync rounds,
+   bytes and rejoin bytes, floats within the parity pair, a profiled
+   repeat bitwise, an all-True mask bitwise its phase 3 run, peak under
+   1 GiB.
+
 The last lines are the card's ``nvidia-smi`` name and power limit, the
-``kernels`` summary, and ``{"ok": true, "device": {...}}``.  Without a
+``kernels`` summary (with each kernel's ``slice_shapes`` numbers and
+the SV sweep's grouped check sizes), and
+``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
 """
@@ -736,6 +769,96 @@ def check_node_shapes(fused, ops, qf, ref, rff_by_bucket, dev, gen) -> dict:
     return out
 
 
+def check_slice_shapes(fused, ops, ref, dev, gen) -> dict:
+    """The kernels at the shapes the sweep and population phases give
+    them: ``sv_predict`` over the SV sweep's stacked rows (B = 8 x 32);
+    the grouped dynamic check (``ops.rkhs_dist_sq_groups``, 8 configs'
+    2m + 1 forms of 1024^2 in one launch), each config's distances
+    bitwise its own ``rkhs_dist_sq`` launch; the RFF step over B = 256
+    stacked rows; the linear step over the population (B = 10^5,
+    D = 4).  Each against its plain version, timed beside it with its
+    bound.  Returns {kernel: {shape: numbers}}."""
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    n, m, N = len(SV_SWEEP), M_KERNEL, BUDGET
+    B = n * m
+    out = {}
+
+    def line(fn, plain, nbytes, flops, err, **extra):
+        kern, pl = time_ms(fn, iters=20), time_ms(plain, iters=5)
+        return {"ms": kern["ms"], "device_ms": kern["device_ms"],
+                "plain_ms": pl["ms"], "plain_device_ms": pl["device_ms"],
+                "bound_ms": bound_ms(nbytes, flops)[0],
+                "bound_by": bound_ms(nbytes, flops)[1], "max_abs_err": err,
+                **extra}
+
+    X = torch.randn(B, D_IN, generator=gen).to(dev)
+    SV = torch.randn(B, N, D_IN, generator=gen).to(dev)
+    A = torch.randn(B, N, generator=gen).to(dev)
+    err = close(fused.sv_predict(X, SV, A, **kw),
+                ref.sv_predict_ref(X, SV, A, **kw), f"sv_predict B={B}")
+    out["sv_predict"] = {f"B{B}_N{N}": line(
+        lambda: fused.sv_predict(X, SV, A, **kw),
+        lambda: ref.sv_predict_ref(X, SV, A, **kw),
+        4 * (B * D_IN + B * N * D_IN + B * N + B), B * N * (4 * D_IN + 8),
+        err)}
+    del SV
+    F = torch.randn(n, m, N, D_IN, generator=gen).to(dev)
+    G = torch.randn(n, N, D_IN, generator=gen).to(dev)
+    af = torch.randn(n, m, N, generator=gen).to(dev)
+    ag = torch.randn(n, N, generator=gen).to(dev)
+    af[..., N // 2:] = 0.0
+    ops.reset_launch_counts()
+    got = ops.rkhs_dist_sq_groups(F, G, af, ag, **kw)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}, ops.LAUNCH_COUNTS
+    for k in range(n):
+        assert torch.equal(got[k], ops.rkhs_dist_sq(F[k], G[k], af[k], ag[k],
+                                                    **kw)), \
+            f"grouped check: config {k} differs from its own launch"
+
+    def plain_groups():
+        return torch.stack([
+            ref.quadform_ref(torch.cat([F[k], G[k:k + 1], F[k]]),
+                             torch.cat([F[k], G[k:k + 1],
+                                        G[k].expand(m, N, D_IN)]),
+                             torch.cat([af[k], ag[k:k + 1], af[k]]),
+                             torch.cat([af[k], ag[k:k + 1],
+                                        ag[k].expand(m, N)]), **kw)
+            for k in range(n)])
+
+    q = plain_groups()
+    want = q[:, :m] + q[:, m:m + 1] - 2.0 * q[:, m + 1:]
+    err = close(got, want, f"rkhs_dist_sq_groups P={GROUPED_P}")
+    P = GROUPED_P
+    out["quadform"] = {f"P{P}_1024sq": line(
+        lambda: ops.rkhs_dist_sq_groups(F, G, af, ag, **kw), plain_groups,
+        4 * P * (2 * N * D_IN + 2 * N + 1),
+        P * (N * N * (2 * D_IN + 8) + 2 * N * 2 * D_IN), err,
+        bitwise_own_launches=True)}
+    del F, G, af, ag
+    torch.cuda.empty_cache()
+    for label, featurize, (B, D, d) in (
+            ("primal_step_rff", True, (n * m, N_FEATURES, D_IN)),
+            ("primal_step_linear", False, (POP_M, POP_D, POP_D))):
+        args, kw2 = _step_args(B, D, d, featurize, dev, gen)
+        got = fused.primal_step(*args, loss="hinge", eta=0.5, lam=0.01, **kw2)
+        want = ref.primal_step_ref(*args, loss="hinge", eta=0.5, lam=0.01,
+                                   **kw2)
+        err = max(close(g, w, f"{label} B={B} D={D}")
+                  for g, w in zip(got, want))
+        if featurize:
+            nbytes = 4 * (B * d + 2 * B + 2 * B * D + D * d + D + 3 * B)
+            flops = B * D * 2 * (2 * d + 3) + B * D * 4
+        else:
+            nbytes = 4 * (B * d + 2 * B + 2 * B * D + 3 * B)
+            flops = B * D * 6
+        out[label] = {f"B{B}_D{D}": line(
+            lambda: fused.primal_step(*args, loss="hinge", **kw2),
+            lambda: ref.primal_step_ref(*args, loss="hinge", **kw2),
+            nbytes, flops, err)}
+    emit({"phase": "slice_shapes", **out})
+    return out
+
+
 def bucket_weighted(by_bucket: dict, counts: dict) -> dict:
     """The mean of each number of ``by_bucket`` over a serving run's
     launches: ``counts`` maps a bucket size to its launches."""
@@ -946,22 +1069,37 @@ def e2e_configs():
     ]
 
 
-def _recording(sub, dists: list):
+def _recording(sub, dists: list, groups: list | None = None):
     """``sub`` with every distance its dynamic check computes appended
     to ``dists`` (numbers unchanged: the check already reads the
-    device): the engine's stacked check and an async node's."""
+    device): the engine's stacked check, an async node's and a sweep's
+    grouped check (whose number of configs goes to ``groups``)."""
     base = type(sub)
 
     class Recording(base):
+        grouped = False
+
         def dist_to_ref(self, models, ref):
             d = base.dist_to_ref(self, models, ref)
-            dists.append(d.cpu().numpy().copy())
+            if not Recording.grouped:
+                dists.append(d.cpu().numpy().copy())
             return d
 
         def dist_one(self, model, ref):
             d = base.dist_one(self, model, ref)
             dists.append(d.cpu().numpy().reshape(1))
             return d
+
+        def dist_to_ref_grouped(self, models, refs):
+            Recording.grouped = True
+            try:
+                out = base.dist_to_ref_grouped(self, models, refs)
+            finally:
+                Recording.grouped = False
+            dists.extend(d.cpu().numpy().copy() for d in out)
+            if groups is not None:
+                groups.append(len(models))
+            return out
 
     return Recording(**{f.name: getattr(sub, f.name)
                         for f in dataclasses.fields(sub)})
@@ -988,6 +1126,10 @@ def _port_seconds(by_kernel) -> dict:
         if name.startswith("(anonymous namespace)::"):
             out[name.split("::")[1].split("(")[0].split("<")[0]] += secs
     return dict(out)
+
+
+#: phase 3's rounds per wall second, by run (the sweeps' solo rates)
+RATES: dict = {}
 
 
 def run_e2e(ops, totals, runs):
@@ -1056,6 +1198,7 @@ def run_e2e(ops, totals, runs):
             assert np.array_equal(getattr(got, field), getattr(again, field)), \
                 f"{name}: repeated run differs in {field}"
         runs[name] = got
+        RATES[name] = T_ROUNDS / secs
         emit({"phase": "e2e", "run": name, "m": m, "T": T_ROUNDS,
               "kernel_launches": counts,
               "rounds_per_s": T_ROUNDS / secs,
@@ -1497,6 +1640,388 @@ def run_async(ops, totals, runs) -> None:
               "device_s": device_s, "device_busy_share": device_s / secs,
               "top_kernels_s": dict(by_kernel.most_common(5)),
               "port_kernels_s": _port_seconds(by_kernel), **line})
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: engine.sweep on a stacked config axis
+# ---------------------------------------------------------------------------
+
+#: (delta, mini_batch) of the SV and RFF sweeps' dynamic grids
+SV_SWEEP = [(delta, mb) for delta in (8.0, 16.0, 32.0, 64.0)
+            for mb in (5, 10)]
+RFF_SWEEP = [(delta, mb) for delta in (2.25, 4.5, 9.0, 18.0)
+             for mb in (5, 10)]
+#: the grouped dynamic check of the SV sweep on a round every config
+#: checks: n (2m + 1) forms of BUDGET^2 in one launch
+GROUPED_P = len(SV_SWEEP) * (2 * M_KERNEL + 1)
+SIM_EQUAL = ("cumulative_loss", "cumulative_errors", "cumulative_bytes",
+             "sync_rounds", "divergences", "eps_history", "num_syncs",
+             "total_bytes", "total_loss")
+
+
+def sweep_configs():
+    """(name, learner, m, grid, kernels it must launch, anchors): each
+    anchor is (row, phase-3 run it must equal bitwise, or None for a
+    solo ``engine.run`` made here)."""
+    from repro_torch.core.protocol import ProtocolConfig
+    learners = {name: (learner, m) for name, learner, m, *_ in e2e_configs()}
+
+    def dynamic(grid):
+        return [ProtocolConfig(kind="dynamic", delta=d, mini_batch=b)
+                for d, b in grid]
+
+    lin_grid = [ProtocolConfig(kind="periodic", period=50),
+                ProtocolConfig(kind="periodic", period=10),
+                ProtocolConfig(kind="dynamic", delta=0.1, mini_batch=10),
+                ProtocolConfig(kind="continuous")]
+    return [
+        ("sweep_sv_dynamic", *learners["sv_dynamic"], dynamic(SV_SWEEP),
+         ("sv_predict", "quadform"),
+         [(SV_SWEEP.index((16.0, 10)), "sv_dynamic"),
+          (SV_SWEEP.index((64.0, 5)), None), ("most_syncs", None)]),
+        ("sweep_rff_dynamic", *learners["rff_dynamic"], dynamic(RFF_SWEEP),
+         ("rff_step",), [(RFF_SWEEP.index((9.0, 10)), "rff_dynamic")]),
+        ("sweep_linear_mixed", *learners["linear_periodic"], lin_grid,
+         ("linear_step",), [(0, "linear_periodic")]),
+    ]
+
+
+def _assert_same_result(a, b, label: str) -> None:
+    for field in SIM_EQUAL:
+        assert np.array_equal(getattr(a, field), getattr(b, field)), \
+            f"{label}: {field} differs"
+
+
+def run_sweeps(ops, totals, runs) -> dict:
+    """``engine.sweep`` at full width (``sweep_configs``) under
+    ``backend="kernels"``: each anchor row bitwise its solo run, the
+    grid against ``backend="reference"`` on the card, a profiled repeat
+    bitwise.  Returns the SV sweep's grouped check sizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine, substrate
+    from repro_torch.data.streams import susy_stream
+
+    groups: list = []
+    for name, learner, m, grid, kernels, anchors in sweep_configs():
+        X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+        n = len(grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = engine.sweep(learner, grid, X, Y, backend="kernels",
+                           device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            assert counts.get(k, 0) > 0, f"{name}: {k} never launched"
+            totals[k] = totals.get(k, 0) + counts[k]
+        # one stacked round a round: the group's round kernel launches
+        # T times, not n T
+        step = kernels[0]
+        assert counts[step] == T_ROUNDS, (name, step, counts[step])
+        if name.startswith("sweep_sv"):
+            assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
+        for i in range(n):
+            assert got[i].cumulative_loss.shape == (T_ROUNDS,), name
+            assert np.all(np.isfinite(got[i].cumulative_loss)), (name, i)
+        syncs = [got[i].num_syncs for i in range(n)]
+        solo_rates = {}
+        taken = {r for r, _ in anchors if r != "most_syncs"}
+        for row, e2e in anchors:
+            if row == "most_syncs":
+                row = max((i for i in range(n) if i not in taken),
+                          key=lambda i: syncs[i])
+            if e2e is not None:
+                want = runs[e2e]
+                solo_rates[row] = RATES[e2e]
+            else:
+                t0 = time.perf_counter()
+                want = engine.run(learner, grid[row], X, Y,
+                                  backend="kernels", device="cuda")
+                torch.cuda.synchronize()
+                solo_rates[row] = T_ROUNDS / (time.perf_counter() - t0)
+            _assert_same_result(got[row], want, f"{name}[{row}]")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        want = engine.sweep(learner, grid, X, Y, backend="reference",
+                            device="cuda")
+        torch.cuda.synchronize()
+        ref_secs = time.perf_counter() - t0
+        ref_peak = torch.cuda.max_memory_allocated()
+        for i in range(n):
+            g, w = got[i], want[i]
+            assert np.array_equal(g.sync_rounds, w.sync_rounds), (name, i)
+            assert np.array_equal(g.cumulative_bytes, w.cumulative_bytes), \
+                (name, i)
+            np.testing.assert_allclose(g.cumulative_loss, w.cumulative_loss,
+                                       rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                       err_msg=f"{name}[{i}]")
+            np.testing.assert_allclose(g.eps_history, w.eps_history,
+                                       rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                       err_msg=f"{name}[{i}]")
+        # the repeat: profiled, bitwise, its grouped checks recorded
+        dists: list = []
+        sizes: list = []
+        sub = _recording(substrate.substrate_of(learner, backend="kernels"),
+                         dists, sizes)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = engine.sweep(sub, grid, X, Y, device="cuda")
+            torch.cuda.synchronize()
+        for i in range(n):
+            _assert_same_result(got[i], again[i], f"{name}[{i}] repeat")
+        if name.startswith("sweep_sv"):
+            groups = sizes
+            assert max(sizes) == n, sizes        # every config due at once
+        by_kernel = _device_seconds(prof)
+        device_s = sum(by_kernel.values())
+        emit({"phase": "sweep", "run": name, "n_configs": n, "m": m,
+              "T": T_ROUNDS, "kernel_launches": counts, "wall_s": secs,
+              "config_rounds_per_s": n * T_ROUNDS / secs,
+              "solo_rounds_per_s": {str(k): v for k, v in
+                                    solo_rates.items()},
+              "reference_wall_s": ref_secs,
+              "reference_config_rounds_per_s": n * T_ROUNDS / ref_secs,
+              "num_syncs": syncs,
+              "total_bytes": [got[i].total_bytes for i in range(n)],
+              "anchors_bitwise": sorted(solo_rates),
+              "grouped_checks": dict(collections.Counter(sizes)),
+              "max_memory_allocated": peak,
+              "reference_max_memory_allocated": ref_peak,
+              "device_s": device_s, "device_busy_share": device_s / secs,
+              "top_kernels_s": dict(by_kernel.most_common(5)),
+              "port_kernels_s": _port_seconds(by_kernel)})
+        torch.cuda.empty_cache()
+    return {"grouped_checks": dict(collections.Counter(groups))}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: population/ (the participation mask)
+# ---------------------------------------------------------------------------
+
+#: benchmarks/bench_population.py's population and stream
+POP_M = 100_000
+POP_T = 40
+POP_D = 4
+POP_RATES = (0.1, 0.5, 1.0)
+POP_M_BIG = 1_000_000
+POP_T_BIG = 6
+
+
+def _oracle_cumulative_bytes(res, mask, num_params: int) -> np.ndarray:
+    """bench_population.py:59-72: every rejoiner downloads |theta| B,
+    every sync moves 2 c_t |theta| B over the coordinator links."""
+    from repro_torch.population import rejoin_counts
+    sync_set = {int(t) for t in res.sync_rounds}
+    r = rejoin_counts(mask)
+    c = mask.sum(axis=1).astype(np.int64)
+    per = np.zeros(mask.shape[0], np.int64)
+    for t in range(mask.shape[0]):
+        per[t] = int(r[t]) * num_params * 4
+        if t in sync_set:
+            per[t] += 2 * int(c[t]) * num_params * 4
+    return np.cumsum(per)
+
+
+def _timed_population(ops, totals, kernels, label, *args, **kw):
+    """One ``run_population`` on the card -> (result, wall s, launches,
+    peak bytes); its kernels must launch."""
+    from repro_torch.population import run_population
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pres = run_population(*args, device="cuda", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(ops.LAUNCH_COUNTS)
+    for k in kernels:
+        assert counts.get(k, 0) > 0, f"{label}: {k} never launched"
+        totals[k] = totals.get(k, 0) + counts[k]
+    assert np.all(np.isfinite(pres.sim.cumulative_loss)), label
+    return pres, secs, counts, torch.cuda.max_memory_allocated()
+
+
+def _profiled(fn):
+    """(fn's value, device s of its CUDA kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_kernel = _device_seconds(prof)
+    return out, sum(by_kernel.values()), by_kernel
+
+
+def _population_line(name, pres, secs, counts, peak, **extra) -> None:
+    T, m = pres.participation.shape
+    emit({"phase": "population", "run": name, "m_total": m, "T": T,
+          "wall_s": secs, "rounds_per_s": T / secs,
+          "learner_rounds_per_s": T * m / secs,
+          "mean_cohort": pres.mean_cohort,
+          "rejoins": pres.total_rejoins, "num_syncs": pres.sim.num_syncs,
+          "total_bytes": pres.sim.total_bytes,
+          "total_loss": pres.sim.total_loss, "kernel_launches": counts,
+          "max_memory_allocated": peak, **extra})
+
+
+def run_population_phase(ops, totals, runs) -> None:
+    """The population layer at bench_population.py's scale and the SV
+    learners of phase 3 under churn (see the module docstring)."""
+    from repro_torch.core import engine, substrate
+    from repro_torch.core.learners import LearnerConfig
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data.streams import separable_stream
+    from repro_torch.population import ALWAYS_ON, PopulationSpec
+    from repro_torch.telemetry.monitor import monitor_population
+
+    lin = substrate.substrate_of(
+        LearnerConfig(algo="linear_sgd", loss="hinge", eta=0.1, lam=0.001,
+                      dim=POP_D), backend="kernels")
+    num_params = lin.num_params
+    X, Y = separable_stream(T=POP_T, m=POP_M, d=POP_D, seed=0, margin=0.5)
+    pcfg = ProtocolConfig(kind="periodic", period=3)
+    step = ("linear_step",)
+    totals_by_rate = {}
+    for rate in POP_RATES:
+        spec = PopulationSpec(m_total=POP_M, classes=((ALWAYS_ON, 1.0),),
+                              sample_rate=rate, seed=7)
+        label = f"population_linear_rates@{rate}"
+        pres, secs, counts, peak = _timed_population(
+            ops, totals, step, label, spec, lin, pcfg, X, Y)
+        want = _oracle_cumulative_bytes(pres.sim, pres.participation,
+                                        num_params)
+        assert np.array_equal(pres.sim.cumulative_bytes, want), label
+        mon = monitor_population(pres, lin)
+        assert np.array_equal(mon.series().cumulative_bytes,
+                              pres.sim.cumulative_bytes), label
+        assert mon.series().cumulative_bytes.dtype == np.int64, label
+        totals_by_rate[rate] = pres.sim.total_bytes
+        extra = {"sample_rate": rate, "bytes_equal_oracle": True,
+                 "monitor_ok": mon.ok}
+        if rate == 0.5:
+            again, device_s, by_kernel = _profiled(lambda: _timed_population(
+                ops, {}, step, label, spec, lin, pcfg, X, Y)[0])
+            _assert_same_result(pres.sim, again.sim, f"{label} repeat")
+            extra.update(device_s=device_s,
+                         device_busy_share=device_s / secs,
+                         top_kernels_s=dict(by_kernel.most_common(5)))
+        if rate == 1.0:
+            # the whole population every round: engine.run's result
+            _assert_same_result(pres.sim, engine.run(
+                lin, pcfg, X, Y, device="cuda"), label)
+            extra["full_participation_identical"] = True
+        _population_line(label, pres, secs, counts, peak, **extra)
+    assert totals_by_rate[0.1] < totals_by_rate[0.5] < totals_by_rate[1.0], \
+        totals_by_rate
+
+    # the default class mix: phones drop and recover, rejoins are charged
+    spec = PopulationSpec(m_total=POP_M, sample_rate=0.8, seed=3)
+    label = "population_linear_churn"
+    pres, secs, counts, peak = _timed_population(
+        ops, totals, step, label, spec, lin,
+        ProtocolConfig(kind="dynamic", delta=200.0), X, Y)
+    assert pres.total_rejoins > 0, label
+    assert np.array_equal(pres.sim.cumulative_bytes, _oracle_cumulative_bytes(
+        pres.sim, pres.participation, num_params)), label
+    _population_line(label, pres, secs, counts, peak,
+                     bytes_equal_oracle=True)
+    del X, Y
+
+    # bench_population.py's upper end: 10^6 learners
+    Xb, Yb = separable_stream(T=POP_T_BIG, m=POP_M_BIG, d=POP_D, seed=0,
+                              margin=0.5)
+    spec = PopulationSpec(m_total=POP_M_BIG, classes=((ALWAYS_ON, 1.0),),
+                          sample_rate=0.2, seed=7)
+    label = "population_linear_1m"
+    pres, secs, counts, peak = _timed_population(
+        ops, totals, step, label, spec, lin,
+        ProtocolConfig(kind="periodic", period=2), Xb, Yb)
+    assert np.array_equal(pres.sim.cumulative_bytes, _oracle_cumulative_bytes(
+        pres.sim, pres.participation, num_params)), label
+    assert pres.sim.num_syncs == POP_T_BIG // 2, label
+    _population_line(label, pres, secs, counts, peak,
+                     bytes_equal_oracle=True)
+    del Xb, Yb
+    torch.cuda.empty_cache()
+
+    # phase 3's SV learners under churn, against the reference backend:
+    # sv_dynamic's protocol and sv_periodic's, whose syncs always find a
+    # cohort
+    for e2e in ("sv_dynamic", "sv_periodic"):
+        _sv_churn(ops, totals, runs, e2e)
+
+
+def _sv_churn(ops, totals, runs, e2e: str) -> None:
+    """``run_population`` of phase 3's ``e2e`` run under churn
+    (``PopulationSpec(m_total=32, sample_rate=0.8, seed=3)``): kernels
+    against the reference backend, a profiled repeat, an all-True mask
+    against phase 3's run."""
+    from repro_torch.core import substrate
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.population import PopulationSpec
+
+    _, sv, m, pcfg, _ = next(c for c in e2e_configs() if c[0] == e2e)
+    X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+    spec = PopulationSpec(m_total=m, sample_rate=0.8, seed=3)
+    label = f"population_{e2e.replace('sv_', 'sv_churn_')}"
+    kern = substrate.substrate_of(sv, backend="kernels")
+    pres, secs, counts, peak = _timed_population(
+        ops, totals, ("sv_predict", "quadform"), label, spec, kern, pcfg, X,
+        Y)
+    assert peak < SV_PEAK_LIMIT, f"{label}: peak memory {peak} B"
+    assert pres.total_rejoins > 0, label
+    if pcfg.kind == "periodic":
+        assert pres.sim.num_syncs > 0, label
+
+    def rejoin_logged(sub, log):
+        base = type(sub)
+
+        class Logged(base):
+            def rejoin_payload_bytes(self, models, ref, rejoin):
+                b = base.rejoin_payload_bytes(self, models, ref, rejoin)
+                log.append(int(b))
+                return b
+
+        return Logged(**{f.name: getattr(sub, f.name)
+                         for f in dataclasses.fields(sub)})
+
+    kern_rejoins: list = []
+    again, device_s, by_kernel = _profiled(lambda: _timed_population(
+        ops, {}, (), label, spec, rejoin_logged(kern, kern_rejoins), pcfg,
+        X, Y)[0])
+    _assert_same_result(pres.sim, again.sim, f"{label} repeat")
+    ref_rejoins: list = []
+    want, ref_secs, _, ref_peak = _timed_population(
+        ops, {}, (), label, spec, rejoin_logged(substrate.substrate_of(
+            sv, backend="reference"), ref_rejoins), pcfg, X, Y)
+    assert np.array_equal(pres.sim.sync_rounds, want.sim.sync_rounds), label
+    assert np.array_equal(pres.sim.cumulative_bytes,
+                          want.sim.cumulative_bytes), label
+    assert kern_rejoins == ref_rejoins and len(ref_rejoins) > 0, label
+    np.testing.assert_allclose(pres.sim.cumulative_loss,
+                               want.sim.cumulative_loss, rtol=PARITY_RTOL,
+                               atol=PARITY_ATOL, err_msg=label)
+    np.testing.assert_allclose(pres.sim.eps_history, want.sim.eps_history,
+                               rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                               err_msg=label)
+    # an all-True override is phase 3's unmasked run, bitwise
+    full, _, _, _ = _timed_population(
+        ops, {}, (), label, spec, kern, pcfg, X, Y,
+        participation=np.ones((T_ROUNDS, m), bool))
+    _assert_same_result(full.sim, runs[e2e], f"{label} all-True")
+    _population_line(label, pres, secs, counts, peak,
+                     rejoin_bytes=sum(kern_rejoins),
+                     reference_wall_s=ref_secs,
+                     reference_total_loss=want.sim.total_loss,
+                     reference_max_memory_allocated=ref_peak,
+                     all_true_equals=e2e, device_s=device_s,
+                     device_busy_share=device_s / secs,
+                     top_kernels_s=dict(by_kernel.most_common(5)),
+                     port_kernels_s=_port_seconds(by_kernel))
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1974,6 +2499,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     node_shapes = check_node_shapes(fused, ops, qf, ref,
                                     results["rff"]["by_bucket"], dev, gen)
+    slice_shapes = check_slice_shapes(fused, ops, ref, dev, gen)
     torch.cuda.synchronize()
 
     # the runs use deterministic algorithms (after the kernel timings:
@@ -1987,6 +2513,8 @@ def main() -> int:
     run_e2e(ops, totals, runs)
     bucket_counts = run_serving(ops, totals, runs)
     run_async(ops, totals, runs)
+    grouped = run_sweeps(ops, totals, runs)
+    run_population_phase(ops, totals, runs)
     # rff's line at the main path's mix of bucket sizes
     rff_line = results["rff"]
     counts = bucket_counts["serve_rff_dynamic"]
@@ -2048,7 +2576,11 @@ def main() -> int:
                                  "weighted_bound_ms") if k in r},
             # the asynchronous runtime's one-node shapes
             **({"node_shapes": node_shapes[name]} if name in node_shapes
-               else {})})
+               else {}),
+            # the sweep's stacked rows and grouped check, the population
+            **({"slice_shapes": slice_shapes[name]} if name in slice_shapes
+               else {}),
+            **(grouped if name == "quadform" else {})})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

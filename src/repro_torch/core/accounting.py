@@ -13,7 +13,9 @@ same sums).  ``allreduce_bytes`` / ``allgather_bytes`` price the ring
 collectives of ``topology="allreduce"``.
 
 ``device_sync_bytes_kernel`` runs the same set algebra on the device
-over sorted int32 id arrays.  The port keeps the byte count in int64,
+over sorted int32 id arrays, over every learner or a participating
+cohort (``mask=``); ``device_rejoin_bytes_kernel`` prices a rejoining
+learner's download of the reference.  The port keeps the byte count in int64,
 but refuses exactly the shapes the reference's int32 guard refuses
 (``repro/core/accounting.py:215``), so the two packages accept the
 same runs.  The host ``sync_bytes_kernel`` / ``CommunicationLedger``
@@ -139,7 +141,8 @@ def check_kernel_sync_capacity(bm: ByteModel, m: int, tau: int) -> None:
 
 
 def device_sync_bytes_kernel(bm: ByteModel, stacked_ids: torch.Tensor,
-                             ledger: DeviceLedger
+                             ledger: DeviceLedger,
+                             mask: torch.Tensor | None = None,
                              ) -> tuple[torch.Tensor, DeviceLedger]:
     """Bytes (int64 0-dim tensor) for one kernel-model sync and the
     ledger with known = Sbar_t.
@@ -149,9 +152,23 @@ def device_sync_bytes_kernel(bm: ByteModel, stacked_ids: torch.Tensor,
 
       upload   |s_i| B_alpha + |s_i \\ K| B_x
       download |U| B_alpha + (|U| - |s_i|) B_x
+
+    ``mask`` (m,) bool restricts the sync to a participating cohort:
+    a non-participant's id row becomes the empty set (it neither
+    uploads nor downloads nor adds to the union), the downloaders are
+    the cohort, and ``known`` becomes the cohort's union.  A mask only
+    shrinks the cohort, so the full-m guard covers it.
     """
     m, tau = stacked_ids.shape
     check_kernel_sync_capacity(bm, m, tau)
+    if mask is not None:
+        mask = torch.as_tensor(mask, dtype=torch.bool,
+                               device=stacked_ids.device)
+        stacked_ids = torch.where(mask[:, None], stacked_ids,
+                                  torch.full_like(stacked_ids, -1))
+        downloaders = torch.sum(mask.to(torch.int64))
+    else:
+        downloaders = m
     uniq, n = rkhs.sorted_unique_rows(stacked_ids)         # (m, tau), (m,)
     union, u = rkhs.sorted_unique(uniq)                     # (m*tau,), ()
     in_known = rkhs.count_members(uniq, ledger.known)       # (m,)
@@ -160,13 +177,44 @@ def device_sync_bytes_kernel(bm: ByteModel, stacked_ids: torch.Tensor,
     n_total = torch.sum(n)
     total = (n_total * bm.B_alpha
              + torch.sum(n - in_known.to(torch.int64)) * bm.B_x
-             + m * u * bm.B_alpha
-             + (m * u - n_total) * bm.B_x)
+             + downloaders * u * bm.B_alpha
+             + (downloaders * u - n_total) * bm.B_x)
     cap = ledger.known.shape[0]
     if union.shape[0] != cap:
         raise ValueError(
             f"union capacity {union.shape[0]} != ledger capacity {cap}")
     return total, DeviceLedger(known=union)
+
+
+def device_rejoin_bytes_kernel(bm: ByteModel, ref_ids: torch.Tensor,
+                               stacked_ids: torch.Tensor,
+                               rejoin: torch.Tensor) -> torch.Tensor:
+    """Sec. 3 download bytes (int64 0-dim tensor) of re-adopting the
+    reference on the ``rejoin`` (m,) bool learners: per rejoiner i
+    with id set s_i and the reference's distinct id set R, one
+    delta-encoded message ``|R| B_alpha + |R \\ s_i| B_x``
+    (``kernel_payload_bytes`` on the host).  Refuses the shapes the
+    reference's int32 guard refuses."""
+    m, tau = stacked_ids.shape
+    worst = m * max(int(ref_ids.reshape(-1).shape[0]), tau) \
+        * (bm.B_alpha + bm.B_x)
+    if worst >= INT32_LIMIT:
+        raise ValueError(
+            f"per-round rejoin bytes can reach {worst} for m={m}, "
+            "which overflows the reference's int32 byte column; use the "
+            "host accounting at this scale")
+    rejoin = torch.as_tensor(rejoin, dtype=torch.bool,
+                             device=stacked_ids.device)
+    ref_uniq, ref_n = rkhs.sorted_unique(ref_ids)            # (R,), ()
+    rows, _ = rkhs.sorted_unique_rows(stacked_ids)           # (m, tau)
+    # |R ∩ s_i|: R's ids searched in each learner's sorted row
+    q = ref_uniq.expand(m, -1).contiguous()
+    idx = torch.clamp(torch.searchsorted(rows, q), 0, tau - 1)
+    hit = (torch.gather(rows, 1, idx) == q) & (q < rkhs.ID_SENTINEL)
+    overlap = torch.sum(hit.to(torch.int64), dim=-1)
+    ref_n = ref_n.to(torch.int64)
+    per = ref_n * bm.B_alpha + (ref_n - overlap) * bm.B_x
+    return torch.sum(torch.where(rejoin, per, torch.zeros_like(per)))
 
 
 class CommunicationLedger:

@@ -47,7 +47,23 @@ launches ``sv_predict`` or ``rff`` on one row, the dynamic check one
 ``quadform`` launch of 3 forms, and an SV aggregate one ``quadform``
 form over the 2 n tau slots of its mix (no Gram).
 
-Not ported yet (ROADMAP.md): the masked faces (population).
+The participation face (a sampled cohort, ``population/``):
+``average_stacked_masked / sync_payload_masked / rejoin_payload_bytes /
+allreduce_sync_bytes_masked``.  ``mask`` is an (m,) bool array (the
+engine passes the host's row of the participation mask, so the cohort
+size needs no read back) or tensor.  With every learner in the cohort each masked op
+takes its unmasked twin's code, so an all-True mask returns the
+twin's floats and integers bitwise; an empty cohort divides nothing
+by zero.
+
+The sweep's face (``engine.sweep`` stacks n configs of m learners on
+one axis of n m rows): ``rows_independent(m)`` says whether
+``round_stacked`` over m rows takes a path whose row floats do not
+depend on the row count (an engaged kernel with the row alone, and
+elementwise code around it), so the configs may share one call and
+each row still equals its solo run's bitwise; ``dist_to_ref_grouped``
+runs several configs' dynamic checks, each against its own reference,
+in one ``quadform`` launch where each config's own check is one.
 """
 from __future__ import annotations
 
@@ -94,6 +110,12 @@ def _gather(models, lids: torch.Tensor):
 def _stack_one(model):
     """One model as a stack of one."""
     return type(model)(*(v[None] for v in model))
+
+
+def _cohort(mask, device) -> Tuple[torch.Tensor, int]:
+    """(mask as a bool tensor on ``device``, cohort size as a host int)."""
+    count = int(mask.sum())
+    return torch.as_tensor(mask, dtype=torch.bool, device=device), count
 
 
 class Substrate:
@@ -185,6 +207,38 @@ class Substrate:
         if d != self.input_dim:
             raise ValueError(
                 f"stream dim {d} != substrate dim {self.input_dim}")
+
+    # -- participation face (see the module docstring) ----------------------
+
+    def average_stacked_masked(self, models, mask):
+        """(f_sync, eps): the Prop. 2 average over the cohort only."""
+        raise NotImplementedError
+
+    def sync_payload_masked(self, models, mask, ledger):
+        """Sec. 3 bytes of one cohort sync -> (bytes, ledger):
+        non-participants neither upload nor download and are left out
+        of the shipped union."""
+        raise NotImplementedError
+
+    def rejoin_payload_bytes(self, models, ref, rejoin):
+        """Sec. 3 download bytes of re-adopting ``ref`` on the
+        ``rejoin`` (m,) learners (a learner back from churn)."""
+        raise NotImplementedError
+
+    def allreduce_sync_bytes_masked(self, count: int) -> int:
+        """Ring bytes of one cohort sync: ``allreduce_sync_bytes`` of a
+        ring of ``count`` learners (0 for a cohort of 0 or 1)."""
+        return self.allreduce_sync_bytes(int(count))
+
+    # -- the sweep's face (see the module docstring) ------------------------
+
+    def rows_independent(self, m: int) -> bool:
+        return False
+
+    def dist_to_ref_grouped(self, models: Sequence, refs: Sequence) -> list:
+        """``dist_to_ref`` of several configs, each (m, ...) stack
+        against its own reference, as a list of (m,) tensors."""
+        return [self.dist_to_ref(mo, r) for mo, r in zip(models, refs)]
 
     # -- node face ----------------------------------------------------------
 
@@ -348,6 +402,62 @@ class SVSubstrate(Substrate):
         return compression.compress(self.lcfg.kernel, fbar,
                                     self.sync_budget, self.compress_method,
                                     backend=self.backend)
+
+    def average_stacked_masked(self, models: SVModel, mask):
+        # the cohort's slots enter with their coefficients over the cohort
+        # size, every other slot with alpha 0 and id -1: the m tau mix
+        # compressed under this substrate's backend (under "kernels" one
+        # quadform form, no Gram)
+        m, tau, d = models.sv.shape
+        mask, cnt = _cohort(mask, models.sv.device)
+        if cnt == m:
+            return self.average_stacked(models)
+        keep = mask[:, None] & (models.sv_id >= 0)
+        alpha = torch.where(keep, models.alpha / max(cnt, 1),
+                            torch.zeros_like(models.alpha))
+        sv_id = torch.where(mask[:, None], models.sv_id,
+                            torch.full_like(models.sv_id, -1))
+        fbar = SVModel(sv=models.sv.reshape(m * tau, d),
+                       alpha=alpha.reshape(m * tau),
+                       sv_id=sv_id.reshape(m * tau))
+        return compression.compress(self.lcfg.kernel, fbar,
+                                    self.sync_budget, self.compress_method,
+                                    backend=self.backend)
+
+    def sync_payload_masked(self, models: SVModel, mask, ledger):
+        mask, cnt = _cohort(mask, models.sv.device)
+        if cnt == models.sv.shape[0]:
+            return self.sync_payload(models, ledger)
+        bm = accounting.ByteModel(dim=self.lcfg.dim)
+        return accounting.device_sync_bytes_kernel(bm, models.sv_id, ledger,
+                                                   mask=mask)
+
+    def rejoin_payload_bytes(self, models: SVModel, ref: SVModel, rejoin):
+        bm = accounting.ByteModel(dim=self.lcfg.dim)
+        return accounting.device_rejoin_bytes_kernel(
+            bm, ref.sv_id, models.sv_id, rejoin)
+
+    def rows_independent(self, m: int) -> bool:
+        # the engaged sv_predict computes a row alone; the update around
+        # it is elementwise (kernel_pa's k(x, x) sums over d unless the
+        # kernel is gaussian)
+        return self._engaged() and (self.lcfg.algo == "kernel_sgd"
+                                    or self.lcfg.kernel.kind == "gaussian")
+
+    def dist_to_ref_grouped(self, models, refs):
+        # one quadform launch for every config's 2m + 1 forms when each
+        # config's own check engages in every group of forms; a form's
+        # value does not depend on the forms beside it
+        M, N = models[0].sv.shape[1], refs[0].sv.shape[0]
+        if not (self.backend == "kernels" and _kops().engages(M)
+                and _kops().engages(N)):
+            return super().dist_to_ref_grouped(models, refs)
+        d = _kops().rkhs_dist_sq_groups_spec(
+            self.lcfg.kernel, torch.stack([mo.sv for mo in models]),
+            torch.stack([r.sv for r in refs]),
+            torch.stack([rkhs.masked_alpha(mo) for mo in models]),
+            torch.stack([rkhs.masked_alpha(r) for r in refs]))
+        return list(d)
 
     def adopt(self, models: SVModel, fsync: SVModel) -> SVModel:
         one = rkhs.pad_to_budget(fsync, self.lcfg.budget)
@@ -522,6 +632,31 @@ class _PrimalSubstrate(Substrate):
         return mean, torch.zeros((), dtype=torch.float32,
                                  device=models.w.device)
 
+    def average_stacked_masked(self, models, mask):
+        # the cohort's weights summed in stacked order over the cohort
+        # size; the full cohort takes average_stacked's mean
+        m = models.w.shape[0]
+        mask, cnt = _cohort(mask, models.w.device)
+        if cnt == m:
+            return self.average_stacked(models)
+        cls = self._state_cls()
+        w = torch.sum(torch.where(mask[:, None], models.w,
+                                  torch.zeros_like(models.w)), dim=0)
+        b = torch.sum(torch.where(mask, models.b, torch.zeros_like(models.b)))
+        c = max(cnt, 1)
+        return cls(w=w / c, b=b / c), torch.zeros(
+            (), dtype=torch.float32, device=models.w.device)
+
+    def sync_payload_masked(self, models, mask, ledger):
+        _, cnt = _cohort(mask, models.w.device)
+        return accounting.sync_bytes_linear(self.num_params, cnt), ledger
+
+    def rejoin_payload_bytes(self, models, ref, rejoin):
+        # dense vectors have no identity structure: one full download
+        # per rejoining learner
+        _, cnt = _cohort(rejoin, models.w.device)
+        return cnt * accounting.linear_payload_bytes(self.num_params)
+
     def adopt(self, models, fsync):
         cls = self._state_cls()
         return cls(w=fsync.w.expand_as(models.w).clone(),
@@ -625,6 +760,11 @@ class LinearSubstrate(_PrimalSubstrate):
     def init(self, m: int, device) -> LinearLearnerState:
         return learners.init_linear_state(self.lcfg, lead=(m,), device=device)
 
+    def rows_independent(self, m: int) -> bool:
+        # the engaged linear step: a warp a learner
+        return (self.backend == "kernels" and self.lcfg.algo == "linear_sgd"
+                and _kops().engages(m, self.lcfg.dim))
+
     def predict(self, models, x: torch.Tensor) -> torch.Tensor:
         return torch.sum(models.w * x, dim=-1) + models.b
 
@@ -710,6 +850,11 @@ class RFFSubstrate(_PrimalSubstrate):
 
     def init(self, m: int, device) -> RFFLearnerState:
         return rff.init_state(self.spec, lead=(m,), device=device)
+
+    def rows_independent(self, m: int) -> bool:
+        # the engaged RFF step: a cluster a learner
+        return self.backend == "kernels" and _kops().engages(
+            m, self.spec.num_features)
 
     def predict(self, models, x: torch.Tensor) -> torch.Tensor:
         Z = self._phi(x)                               # (m, D)

@@ -25,9 +25,10 @@ from ._build import LAUNCH_COUNTS
 _MIN_KERNEL = 128    # below this, use the plain expressions
 
 __all__ = ["LAUNCH_COUNTS", "engages", "reset_launch_counts", "gram",
-           "sv_predict", "quadform", "rkhs_dist_sq", "fused_primal_step",
+           "sv_predict", "quadform", "rkhs_dist_sq", "rkhs_dist_sq_groups",
+           "fused_primal_step",
            "rff_features", "gram_spec", "sv_predict_spec", "quadform_spec",
-           "rkhs_dist_sq_spec"]
+           "rkhs_dist_sq_spec", "rkhs_dist_sq_groups_spec"]
 
 
 def engages(*dims) -> bool:
@@ -96,18 +97,42 @@ def rkhs_dist_sq(F, G, af, ag, *, kind="gaussian", gamma=1.0, degree=3,
     <g, g> once is bitwise each of the m copies a 3m-form launch
     computes; it is broadcast to the learners before the sum, which
     keeps the sum's order."""
+    return rkhs_dist_sq_groups(F[None], G[None], af[None], ag[None],
+                               kind=kind, gamma=gamma, degree=degree,
+                               coef0=coef0)[0]
+
+
+def rkhs_dist_sq_groups(F, G, af, ag, *, kind="gaussian", gamma=1.0,
+                        degree=3, coef0=1.0):
+    """``rkhs_dist_sq`` of g groups at once, each its own m models
+    against its own G: F (g, m, M, d), G (g, N, d), af (g, m, M),
+    ag (g, N) -> (g, m).  Group k's forms are ``rkhs_dist_sq``'s 2m + 1
+    in its order, and the groups follow each other in one launch (or,
+    off the one-launch case, in each group of forms' launch): a form's
+    value depends on its own operands alone, so each group's distances
+    are bitwise its own call's (the sweep's dynamic checks)."""
     kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
-    m, M, d = F.shape
-    N = G.shape[0]
-    groups = [(F, F, af, af), (G[None], G[None], ag[None], ag[None]),
-              (F, G.expand(m, N, d), af, ag.expand(m, N))]
+    g, m, M, d = F.shape
+    N = G.shape[1]
+    Ff = F.reshape(g * m, M, d)
+    aff = af.reshape(g * m, M)
+    Gm = G[:, None].expand(g, m, N, d).reshape(g * m, N, d)
+    agm = ag[:, None].expand(g, m, N).reshape(g * m, N)
     if M == N and engages(M):
-        X, Y, a, b = (torch.cat([g[i] for g in groups]) for i in range(4))
-        q = quadform(X, Y, a, b, **kw)
-        qff, qgg, qfg = q[:m], q[m:m + 1], q[m + 1:]
+        X = torch.cat([torch.cat([F[k], G[k:k + 1], F[k]]) for k in range(g)])
+        Y = torch.cat([torch.cat([F[k], G[k:k + 1],
+                                  G[k].expand(m, N, d)]) for k in range(g)])
+        a = torch.cat([torch.cat([af[k], ag[k:k + 1], af[k]])
+                       for k in range(g)])
+        b = torch.cat([torch.cat([af[k], ag[k:k + 1], ag[k].expand(m, N)])
+                       for k in range(g)])
+        q = quadform(X, Y, a, b, **kw).reshape(g, 2 * m + 1)
+        qff, qgg, qfg = q[:, :m], q[:, m:m + 1], q[:, m + 1:]
     else:
-        qff, qgg, qfg = (quadform(*g, **kw) for g in groups)
-    return qff + qgg.expand(m) - 2.0 * qfg
+        qff = quadform(Ff, Ff, aff, aff, **kw).reshape(g, m)
+        qgg = quadform(G, G, ag, ag, **kw).reshape(g, 1)
+        qfg = quadform(Ff, Gm, aff, agm, **kw).reshape(g, m)
+    return qff + qgg.expand(g, m) - 2.0 * qfg
 
 
 def fused_primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
@@ -154,3 +179,7 @@ def quadform_spec(spec, X, Y, alpha, beta, **kw):
 
 def rkhs_dist_sq_spec(spec, F, G, af, ag):
     return rkhs_dist_sq(F, G, af, ag, **_kw(spec))
+
+
+def rkhs_dist_sq_groups_spec(spec, F, G, af, ag):
+    return rkhs_dist_sq_groups(F, G, af, ag, **_kw(spec))

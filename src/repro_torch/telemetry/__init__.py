@@ -1,9 +1,17 @@
-"""Observability (port of ``repro.telemetry``): the trace recorder.
+"""Observability (port of ``repro.telemetry``): the trace recorder and
+the Def. 1 loss-proportionality monitor.
 
-``monitor`` and ``probe`` wait for the telemetry slice (ROADMAP.md).
+``probe`` (the reference's JAX compile counters) waits for the
+telemetry slice (ROADMAP.md).
 """
+from . import monitor, trace
+from .monitor import (CriterionMonitor, MonitorSeries, monitor_population,
+                      monitor_result, monitor_sweep, unit_bytes_of)
 from .trace import (PID_MONITOR, PID_NETWORK, PID_RUNTIME, PID_SERVING,
                     TICKS_PER_UNIT, Tracer)
 
-__all__ = ["PID_MONITOR", "PID_NETWORK", "PID_RUNTIME", "PID_SERVING",
+__all__ = ["monitor", "trace",
+           "CriterionMonitor", "MonitorSeries", "monitor_population",
+           "monitor_result", "monitor_sweep", "unit_bytes_of",
+           "PID_MONITOR", "PID_NETWORK", "PID_RUNTIME", "PID_SERVING",
            "TICKS_PER_UNIT", "Tracer"]

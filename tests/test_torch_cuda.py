@@ -717,3 +717,136 @@ def test_sv_aggregate_at_full_width_keeps_the_reference_model(cuda):
     assert union == ref_union and len(union) == n * 820 + 820
     np.testing.assert_allclose(eps, ref_eps, rtol=PARITY_RTOL,
                                atol=PARITY_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# engine.sweep on a stacked config axis, and the participation mask
+# ---------------------------------------------------------------------------
+
+SIM_FIELDS = ("cumulative_loss", "cumulative_errors", "cumulative_bytes",
+              "sync_rounds", "divergences", "eps_history")
+
+
+def _sweep_learner(family):
+    """(learner, m, dynamic delta, round kernel) at an engaged size: SV
+    budget 130, RFF D 256, linear m 130."""
+    if family == "sv":
+        return (LearnerConfig(budget=130, dim=18, kernel=KernelSpec(
+            gamma=0.05)), 8, 4.0, "sv_predict")
+    if family == "rff":
+        return (RFFSpec(dim=18, num_features=256, gamma=0.05, seed=0), 8,
+                1.5, "rff_step")
+    return LearnerConfig(algo="linear_sgd", dim=18), 130, 4.0, "linear_step"
+
+
+def _assert_same_sim(a, b, label):
+    for field in SIM_FIELDS:
+        assert np.array_equal(getattr(a, field), getattr(b, field)), \
+            (label, field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sv", "rff", "linear"])
+def test_sweep_row_is_its_solo_run_bitwise(family, cuda):
+    """A grid of mixed kinds stacked on n m rows: one round launch a
+    round for the group, and every row bitwise its solo ``run``."""
+    learner, m, delta, step = _sweep_learner(family)
+    X, Y = susy_stream(60, m, d=18, seed=5)
+    grid = [ProtocolConfig(kind="dynamic", delta=delta, mini_batch=3),
+            ProtocolConfig(kind="dynamic", delta=2 * delta, mini_batch=5),
+            ProtocolConfig(kind="periodic", period=7),
+            ProtocolConfig(kind="continuous")]
+    ops.reset_launch_counts()
+    sw = engine.sweep(learner, grid, X, Y, backend="kernels",
+                      record_divergence=True, device=cuda)
+    assert ops.LAUNCH_COUNTS[step] == 60, dict(ops.LAUNCH_COUNTS)
+    for i, p in enumerate(grid):
+        solo = engine.run(learner, p, X, Y, backend="kernels",
+                          record_divergence=True, device=cuda)
+        _assert_same_sim(sw[i], solo, f"{family}[{i}]")
+    assert sw[0].num_syncs > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_grouped_dist_is_each_configs_own_launch_bitwise(kind, cuda):
+    """``ops.rkhs_dist_sq_groups``: g configs' 2m + 1 forms in one
+    launch, each config's distances bitwise its own launch, whatever
+    references sit beside it."""
+    gen = torch.Generator().manual_seed(90)
+    g, m, N = 6, 8, 256
+    F = _randn(gen, g, m, N, 18, dev=cuda)
+    G = _randn(gen, g, N, 18, dev=cuda)
+    af, ag = _randn(gen, g, m, N, dev=cuda), _randn(gen, g, N, dev=cuda)
+    af[:, :, N // 3:] = 0.0
+    kw = dict(kind=kind, gamma=0.05)
+    ops.reset_launch_counts()
+    got = ops.rkhs_dist_sq_groups(F, G, af, ag, **kw)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}
+    for k in range(g):
+        assert torch.equal(got[k], ops.rkhs_dist_sq(F[k], G[k], af[k], ag[k],
+                                                    **kw)), k
+    # the same configs beside other references
+    G2 = G.flip(0)
+    again = ops.rkhs_dist_sq_groups(F[:1], G[:1], af[:1], ag[:1], **kw)
+    assert torch.equal(again[0], got[0])
+    mixed = ops.rkhs_dist_sq_groups(torch.cat([F[:1], F[1:]]),
+                                    torch.cat([G[:1], G2[1:]]),
+                                    af, torch.cat([ag[:1], ag.flip(0)[1:]]),
+                                    **kw)
+    assert torch.equal(mixed[0], got[0])
+
+
+@pytest.mark.cuda
+def test_masked_sv_sync_keeps_the_reference_backends_model(cuda):
+    """The cohort average of a trained SV stack under ``"kernels"``
+    (epsilon from one ``quadform`` form, no Gram) keeps the model
+    ``"reference"`` keeps, bitwise; epsilon within the parity pair."""
+    import dataclasses
+    from repro_torch.core import substrate
+    gen = torch.Generator().manual_seed(91)
+    m, budget = 8, 256
+    sub = substrate.substrate_of(
+        LearnerConfig(budget=budget, dim=18, kernel=KernelSpec(gamma=0.05)),
+        backend="kernels").on(cuda)
+    state = sub.init(m, cuda)
+    for _ in range(300):
+        x = _randn(gen, m, 18, dev=cuda)
+        y = torch.where(_randn(gen, m, dev=cuda) > 0, 1.0, -1.0)
+        state, _, _ = sub.round_stacked(state, (x, y))
+    models = sub.models_of(state)
+    mask = torch.tensor([1, 0, 1, 1, 0, 1, 1, 0], dtype=torch.bool,
+                        device=cuda)
+    ops.reset_launch_counts()
+    got, eps = sub.average_stacked_masked(models, mask)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}
+    plain = dataclasses.replace(sub, backend="reference")
+    want, ref_eps = plain.average_stacked_masked(models, mask)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _close(eps, ref_eps, "masked sync eps")
+    every = torch.ones(m, dtype=torch.bool, device=cuda)
+    for a, b in zip(sub.average_stacked_masked(models, every)[0],
+                    sub.average_stacked(models)[0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sv", "rff", "linear"])
+def test_all_true_mask_is_run_bitwise(family, cuda):
+    """An all-True mask is the unmasked run, bitwise; a partial mask's
+    run repeats bitwise and launches the round kernel every round."""
+    learner, m, delta, step = _sweep_learner(family)
+    X, Y = susy_stream(50, m, d=18, seed=6)
+    p = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=3)
+    kw = dict(backend="kernels", record_divergence=True, device=cuda)
+    solo = engine.run(learner, p, X, Y, **kw)
+    full = engine.run(learner, p, X, Y,
+                      participation=np.ones((50, m), bool), **kw)
+    _assert_same_sim(full, solo, family)
+    mask = np.random.default_rng(6).random((50, m)) < 0.7
+    ops.reset_launch_counts()
+    part = engine.run(learner, p, X, Y, participation=mask, **kw)
+    assert ops.LAUNCH_COUNTS[step] == 50
+    _assert_same_sim(part, engine.run(learner, p, X, Y, participation=mask,
+                                      **kw), f"{family} repeat")

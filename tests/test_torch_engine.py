@@ -175,16 +175,26 @@ def test_engine_run_variants_match_reference(variant, backend_parity):
 
 
 def test_engine_run_refuses_what_is_not_ported():
+    """``mesh=`` still raises (the mesh engine); ``participation=`` and
+    ``sweep``, which raised here until they were ported, now run: an
+    all-True mask and a one-config sweep each give ``run``'s ledger."""
     X, Y = susy_stream(4, 2, d=D_IN, seed=0)
     tl = TLearner(algo="linear_sgd", dim=D_IN)
     p = TProtocol(kind="periodic", period=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.run(tl, p, X, Y, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.run(tl, p, X, Y, device="cpu",
-                 participation=np.ones((4, 2), bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.sweep(tl, [p], X, Y)
+        teng.sweep(tl, [p], X, Y, device="cpu", mesh=object())
+    solo = teng.run(tl, p, X, Y, device="cpu")
+    masked = teng.run(tl, p, X, Y, device="cpu",
+                      participation=np.ones((4, 2), bool))
+    row = teng.sweep(tl, [p], X, Y, device="cpu")[0]
+    for got in (masked, row):
+        np.testing.assert_array_equal(got.sync_rounds, solo.sync_rounds)
+        np.testing.assert_array_equal(got.cumulative_bytes,
+                                      solo.cumulative_bytes)
+        np.testing.assert_array_equal(got.cumulative_loss,
+                                      solo.cumulative_loss)
     with pytest.raises(ValueError):
         teng.run(tl, p, X, Y, device="cpu", topology="ring")
     with pytest.raises(ValueError):      # the stream's d must match

@@ -4,9 +4,9 @@
   ``chip_smoke.py`` finds no import of ``jax`` or ``repro``;
 - a fresh interpreter that imports the port (and builds nothing) has
   neither in ``sys.modules``;
-- the entry points (``engine.run``, ``run_async_simulation``, the LM's)
-  resolve ``device=None`` to the CUDA card and raise where there is
-  none.
+- the entry points (``engine.run``, ``engine.sweep``,
+  ``run_population``, ``run_async_simulation``, the LM's) resolve
+  ``device=None`` to the CUDA card and raise where there is none.
 """
 import ast
 import os
@@ -22,6 +22,7 @@ from repro_torch import device as tdevice
 from repro_torch.core import engine as teng
 from repro_torch.core.learners import LearnerConfig
 from repro_torch.core.protocol import ProtocolConfig
+from repro_torch.population import PopulationSpec, run_population
 from repro_torch.runtime import AsyncProtocolConfig, run_async_simulation
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -70,6 +71,9 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.runtime import (async_protocol, harness, nodes,\n"
         "                                 transport)\n"
         "from repro_torch.core import criterion\n"
+        "from repro_torch import population\n"
+        "from repro_torch.population import availability, sim\n"
+        "from repro_torch.telemetry import monitor\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -91,6 +95,13 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         teng.run(LearnerConfig(algo="linear_sgd", dim=4),
                  ProtocolConfig(kind="periodic", period=2), X, Y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.sweep(LearnerConfig(algo="linear_sgd", dim=4),
+                   [ProtocolConfig(kind="periodic", period=2)], X, Y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_population(PopulationSpec(m_total=2),
+                       LearnerConfig(algo="linear_sgd", dim=4),
+                       ProtocolConfig(kind="periodic", period=2), X, Y)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_async_simulation(LearnerConfig(algo="linear_sgd", dim=4),
                              AsyncProtocolConfig(kind="periodic", period=2),

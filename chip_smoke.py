@@ -130,9 +130,35 @@ non-zero with no result line:
    repeat bitwise, an all-True mask bitwise its phase 3 run, peak under
    1 GiB.
 
+10. ``mesh``: ``launch.mesh.make_learner_mesh(devices=["cuda:0"] * n)``
+   on phase 3's learners and stream, the shards on the one card:
+   ``engine.run(mesh=)`` for ``mesh_sv_dynamic`` at 2 and 4 shards,
+   ``mesh_sv_periodic``, ``mesh_rff_dynamic`` and
+   ``mesh_linear_periodic`` at 4 (m = 1024, 256 a shard), each bitwise
+   its phase 3 run in every field (the SV runs peaking under 1 GiB);
+   ``mesh_sv_dynamic`` again under ``topology="allreduce"`` (the same
+   sync rounds, each at the ring bytes) and a profiled bitwise repeat
+   (the card's busy share, launches a shard); ``engine.sweep(mesh=)`` on
+   the RFF sweep's grid (each row bitwise the single-device sweep's,
+   one step launch a shard a round); ``run_population(mesh=)`` at
+   10^5 linear learners and sample rate 0.5 (bitwise the single-device
+   masked run, bytes equal to the closed-form Sec. 3 oracle);
+   ``serve_rff_dynamic`` with 2 slots a shard (its ``sim`` bitwise the
+   unmeshed serve's, every shard's bucket rows bitwise ``predict_one``).
+   With more than one card, ``mesh_sv_dynamic`` with one shard a card
+   too.  Before the runs, ``mesh_shapes`` times the kernels at a
+   shard's shapes: ``sv_predict`` at B = 8, the 17-form check and
+   ``rkhs_dist_sq_each``'s 24 forms (bitwise the check), the RFF step at
+   B = 8 and the linear step at B = 256.
+11. ``oracle``: ``simulation.run_kernel_simulation`` at ``sv_dynamic``'s
+   config and ``run_linear_simulation`` at ``linear_periodic``'s on the
+   card: sync rounds and bytes equal to phase 3's runs, losses and
+   compression errors within the parity pair; the SV oracle's plain
+   compression builds the (m tau)^2 Gram, whose peak is reported.
+
 The last lines are the card's ``nvidia-smi`` name and power limit, the
-``kernels`` summary (with each kernel's ``slice_shapes`` numbers and
-the SV sweep's grouped check sizes), and
+``kernels`` summary (with each kernel's ``slice_shapes`` and
+``mesh_shapes`` numbers and the SV sweep's grouped check sizes), and
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
@@ -1480,6 +1506,8 @@ def run_serving(ops, totals, runs) -> dict:
               "event_clock_latency": got.latency_percentiles(),
               "event_clock_wall": got.wall_clock})
         bucket_counts[name] = dict(got.bucket_counts)
+        runs[name] = got
+        RATES[name] = T_ROUNDS / secs
     return bucket_counts
 
 
@@ -1778,6 +1806,8 @@ def run_sweeps(ops, totals, runs) -> dict:
             assert max(sizes) == n, sizes        # every config due at once
         by_kernel = _device_seconds(prof)
         device_s = sum(by_kernel.values())
+        runs[name] = got
+        RATES[name] = n * T_ROUNDS / secs
         emit({"phase": "sweep", "run": name, "n_configs": n, "m": m,
               "T": T_ROUNDS, "kernel_launches": counts, "wall_s": secs,
               "config_rounds_per_s": n * T_ROUNDS / secs,
@@ -1902,6 +1932,8 @@ def run_population_phase(ops, totals, runs) -> None:
         extra = {"sample_rate": rate, "bytes_equal_oracle": True,
                  "monitor_ok": mon.ok}
         if rate == 0.5:
+            runs[label] = pres
+            RATES[label] = POP_T / secs
             again, device_s, by_kernel = _profiled(lambda: _timed_population(
                 ops, {}, step, label, spec, lin, pcfg, X, Y)[0])
             _assert_same_result(pres.sim, again.sim, f"{label} repeat")
@@ -2022,6 +2054,368 @@ def _sv_churn(ops, totals, runs, e2e: str) -> None:
                      top_kernels_s=dict(by_kernel.most_common(5)),
                      port_kernels_s=_port_seconds(by_kernel))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh engine (launch.mesh, run / sweep / run_population /
+# the serving engine with mesh=)
+# ---------------------------------------------------------------------------
+
+#: shards of the mesh runs, all on the one card unless said otherwise
+MESH_SHARDS = 4
+#: (run, phase-3 run it must equal bitwise, shards)
+MESH_RUNS = (("mesh_sv_dynamic", "sv_dynamic", 2),
+             ("mesh_sv_dynamic", "sv_dynamic", MESH_SHARDS),
+             ("mesh_sv_periodic", "sv_periodic", MESH_SHARDS),
+             ("mesh_rff_dynamic", "rff_dynamic", MESH_SHARDS),
+             ("mesh_linear_periodic", "linear_periodic", MESH_SHARDS))
+
+
+def _one_card_mesh(n: int):
+    from repro_torch.launch.mesh import make_learner_mesh
+    return make_learner_mesh(devices=["cuda:0"] * n)
+
+
+def check_mesh_shapes(fused, ops, ref, dev, gen) -> dict:
+    """The kernels at a shard's shapes (phase 3's learners over
+    ``MESH_SHARDS`` shards): ``sv_predict`` at B = M_KERNEL / 4; a
+    shard's dynamic check (``ops.rkhs_dist_sq``, 2 (m/4) + 1 forms of
+    1024^2 in one launch) and ``ops.rkhs_dist_sq_each`` (3 (m/4) forms,
+    bitwise the check on an equal stack); the RFF step at B = M_KERNEL
+    / 4; the linear step at B = M_LINEAR / 4.  Each against its plain
+    version, timed beside it with its bound.  Returns {kernel: {shape:
+    numbers}}."""
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    m, N = M_KERNEL // MESH_SHARDS, BUDGET
+    out = {}
+
+    def line(fn, plain, nbytes, flops, err, **extra):
+        kern, pl = time_ms(fn, iters=20), time_ms(plain, iters=5)
+        return {"ms": kern["ms"], "device_ms": kern["device_ms"],
+                "plain_ms": pl["ms"], "plain_device_ms": pl["device_ms"],
+                "bound_ms": bound_ms(nbytes, flops)[0],
+                "bound_by": bound_ms(nbytes, flops)[1], "max_abs_err": err,
+                **extra}
+
+    X = torch.randn(m, D_IN, generator=gen).to(dev)
+    SV = torch.randn(m, N, D_IN, generator=gen).to(dev)
+    A = torch.randn(m, N, generator=gen).to(dev)
+    err = close(fused.sv_predict(X, SV, A, **kw),
+                ref.sv_predict_ref(X, SV, A, **kw), f"sv_predict B={m}")
+    out["sv_predict"] = {f"B{m}_N{N}": line(
+        lambda: fused.sv_predict(X, SV, A, **kw),
+        lambda: ref.sv_predict_ref(X, SV, A, **kw),
+        4 * (m * D_IN + m * N * D_IN + m * N + m), m * N * (4 * D_IN + 8),
+        err)}
+    F = torch.randn(m, N, D_IN, generator=gen).to(dev)
+    G = torch.randn(N, D_IN, generator=gen).to(dev)
+    af = torch.randn(m, N, generator=gen).to(dev)
+    ag = torch.randn(N, generator=gen).to(dev)
+    af[:, N // 2:] = 0.0
+    ops.reset_launch_counts()
+    got = ops.rkhs_dist_sq(F, G, af, ag, **kw)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}, ops.LAUNCH_COUNTS
+
+    def plain_check():
+        q = ref.quadform_ref(torch.cat([F, G[None], F]),
+                             torch.cat([F, G[None], G.expand(m, N, D_IN)]),
+                             torch.cat([af, ag[None], af]),
+                             torch.cat([af, ag[None], ag.expand(m, N)]), **kw)
+        return q[:m] + q[m:m + 1] - 2.0 * q[m + 1:]
+
+    err = close(got, plain_check(), f"rkhs_dist_sq m={m}")
+    P = 2 * m + 1
+    check = line(lambda: ops.rkhs_dist_sq(F, G, af, ag, **kw), plain_check,
+                 4 * P * (2 * N * D_IN + 2 * N + 1),
+                 P * (N * N * (2 * D_IN + 8) + 2 * N * 2 * D_IN), err)
+    # per-learner references, one launch of 3 m forms; on an equal
+    # stack bitwise the check's distances
+    Gs = G.expand(m, N, D_IN).contiguous()
+    ags = ag.expand(m, N).contiguous()
+    ops.reset_launch_counts()
+    each = ops.rkhs_dist_sq_each(F, Gs, af, ags, **kw)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 1}, ops.LAUNCH_COUNTS
+    assert torch.equal(each, got), "rkhs_dist_sq_each != rkhs_dist_sq"
+
+    def plain_each():
+        q = ref.quadform_ref(torch.cat([F, Gs, F]), torch.cat([F, Gs, Gs]),
+                             torch.cat([af, ags, af]),
+                             torch.cat([af, ags, ags]), **kw)
+        return q[:m] + q[m:2 * m] - 2.0 * q[2 * m:]
+
+    err = close(each, plain_each(), f"rkhs_dist_sq_each m={m}")
+    P = 3 * m
+    out["quadform"] = {f"check_P{2 * m + 1}_1024sq": check,
+                       f"each_P{P}_1024sq": line(
+        lambda: ops.rkhs_dist_sq_each(F, Gs, af, ags, **kw), plain_each,
+        4 * P * (2 * N * D_IN + 2 * N + 1),
+        P * (N * N * (2 * D_IN + 8) + 2 * N * 2 * D_IN), err,
+        bitwise_dist_to_ref=True)}
+    del F, G, Gs, SV
+    torch.cuda.empty_cache()
+    for label, featurize, (B, D, d) in (
+            ("primal_step_rff", True, (m, N_FEATURES, D_IN)),
+            ("primal_step_linear", False,
+             (M_LINEAR // MESH_SHARDS, D_IN, D_IN))):
+        args, kw2 = _step_args(B, D, d, featurize, dev, gen)
+        got = fused.primal_step(*args, loss="hinge", eta=0.5, lam=0.01, **kw2)
+        want = ref.primal_step_ref(*args, loss="hinge", eta=0.5, lam=0.01,
+                                   **kw2)
+        err = max(close(g, w, f"{label} B={B} D={D}")
+                  for g, w in zip(got, want))
+        if featurize:
+            nbytes = 4 * (B * d + 2 * B + 2 * B * D + D * d + D + 3 * B)
+            flops = B * D * 2 * (2 * d + 3) + B * D * 4
+        else:
+            nbytes = 4 * (B * d + 2 * B + 2 * B * D + 3 * B)
+            flops = B * D * 6
+        out[label] = {f"B{B}_D{D}": line(
+            lambda: fused.primal_step(*args, loss="hinge", **kw2),
+            lambda: ref.primal_step_ref(*args, loss="hinge", **kw2),
+            nbytes, flops, err)}
+    emit({"phase": "mesh_shapes", "shards": MESH_SHARDS, **out})
+    return out
+
+
+def _mesh_line(name, shards, got, secs, counts, peak, single_rate, **extra):
+    T = len(got.cumulative_loss)
+    emit({"phase": "mesh", "run": name, "shards": shards, "T": T,
+          "kernel_launches": counts,
+          "launches_per_shard": {k: v / shards for k, v in counts.items()},
+          "rounds_per_s": T / secs, "single_device_rounds_per_s": single_rate,
+          "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
+          "total_loss": got.total_loss, "max_memory_allocated": peak,
+          **extra})
+
+
+def run_mesh_phase(ops, totals, runs) -> None:
+    """``engine.run`` / ``engine.sweep`` / ``run_population`` /
+    ``serve_stream`` with ``mesh=`` at full width (phase 3's learners),
+    each bitwise its single-device run (see the module docstring)."""
+    from repro_torch.core import engine, substrate
+    from repro_torch.data.streams import separable_stream, susy_stream
+    from repro_torch.launch.mesh import make_learner_mesh
+    from repro_torch.serving import (KernelServingEngine, make_arrivals,
+                                     serve_stream)
+
+    configs = {name: (learner, m, pcfg, kernels)
+               for name, learner, m, pcfg, kernels in e2e_configs()}
+    streams = {}
+
+    def timed(label, kernels, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        for k in kernels:
+            assert counts.get(k, 0) > 0, f"{label}: {k} never launched"
+            totals[k] = totals.get(k, 0) + counts[k]
+        return out, secs, counts, torch.cuda.max_memory_allocated()
+
+    for name, e2e, shards in MESH_RUNS:
+        learner, m, pcfg, kernels = configs[e2e]
+        if m not in streams:
+            streams[m] = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+        X, Y = streams[m]
+        mesh = _one_card_mesh(shards)
+        got, secs, counts, peak = timed(
+            name, kernels, lambda: engine.run(learner, pcfg, X, Y,
+                                              backend="kernels", mesh=mesh))
+        _assert_same_result(got, runs[e2e], f"{name} x{shards}")
+        if e2e.startswith("sv_"):
+            assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
+        extra = {"bitwise_single_device": True}
+        if name == "mesh_sv_dynamic" and shards == MESH_SHARDS:
+            # a profiled repeat: bitwise, the card's busy share
+            again, device_s, by_kernel = _profiled(lambda: engine.run(
+                learner, pcfg, X, Y, backend="kernels", mesh=mesh))
+            _assert_same_result(again, got, f"{name} repeat")
+            extra.update(device_s=device_s, device_busy_share=device_s / secs,
+                         top_kernels_s=dict(by_kernel.most_common(5)),
+                         port_kernels_s=_port_seconds(by_kernel))
+            # the ring topology: the same syncs, each at the ring bytes
+            ring, ring_secs, _, _ = timed(
+                f"{name} allreduce", kernels, lambda: engine.run(
+                    learner, pcfg, X, Y, backend="kernels", mesh=mesh,
+                    topology="allreduce"))
+            assert np.array_equal(ring.sync_rounds, got.sync_rounds), name
+            cost = engine.allreduce_cost(substrate.substrate_of(learner), m)
+            per = np.zeros(T_ROUNDS, np.int64)
+            per[ring.sync_rounds] = cost
+            assert np.array_equal(ring.cumulative_bytes, np.cumsum(per)), name
+            extra.update(allreduce_total_bytes=ring.total_bytes,
+                         allreduce_bytes_per_sync=cost,
+                         allreduce_rounds_per_s=T_ROUNDS / ring_secs)
+        _mesh_line(name, shards, got, secs, counts, peak, RATES[e2e], **extra)
+        torch.cuda.empty_cache()
+
+    if torch.cuda.device_count() > 1:
+        # one shard a card (unverified on a one-card machine)
+        learner, m, pcfg, kernels = configs["sv_dynamic"]
+        X, Y = streams[m]
+        cards = make_learner_mesh()
+        got, secs, counts, peak = timed(
+            "mesh_sv_dynamic cards", kernels, lambda: engine.run(
+                learner, pcfg, X, Y, backend="kernels", mesh=cards))
+        _assert_same_result(got, runs["sv_dynamic"], "mesh_sv_dynamic cards")
+        _mesh_line("mesh_sv_dynamic_cards", cards.size, got, secs, counts,
+                   peak, RATES["sv_dynamic"], bitwise_single_device=True)
+
+    # the RFF sweep's grid on the mesh: each row bitwise the sweep's row
+    name, learner, m, grid, kernels, _ = next(
+        c for c in sweep_configs() if c[0] == "sweep_rff_dynamic")
+    X, Y = streams[m]
+    mesh = _one_card_mesh(MESH_SHARDS)
+    got, secs, counts, peak = timed(
+        "mesh_sweep_rff_dynamic", kernels, lambda: engine.sweep(
+            learner, grid, X, Y, backend="kernels", mesh=mesh))
+    assert counts[kernels[0]] == T_ROUNDS * MESH_SHARDS, counts
+    for i in range(len(grid)):
+        _assert_same_result(got[i], runs[name][i], f"mesh_{name}[{i}]")
+    emit({"phase": "mesh", "run": "mesh_" + name, "shards": MESH_SHARDS,
+          "n_configs": len(grid), "T": T_ROUNDS, "kernel_launches": counts,
+          "config_rounds_per_s": len(grid) * T_ROUNDS / secs,
+          "single_device_config_rounds_per_s": RATES[name],
+          "num_syncs": [got[i].num_syncs for i in range(len(grid))],
+          "max_memory_allocated": peak, "bitwise_single_device": True})
+
+    # the population at sample rate 0.5, 25,000 learners a shard
+    from repro_torch.core.learners import LearnerConfig
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.population import ALWAYS_ON, PopulationSpec
+    lin = substrate.substrate_of(
+        LearnerConfig(algo="linear_sgd", loss="hinge", eta=0.1, lam=0.001,
+                      dim=POP_D), backend="kernels")
+    Xp, Yp = separable_stream(T=POP_T, m=POP_M, d=POP_D, seed=0, margin=0.5)
+    spec = PopulationSpec(m_total=POP_M, classes=((ALWAYS_ON, 1.0),),
+                          sample_rate=0.5, seed=7)
+    label = "mesh_population_rates@0.5"
+    pres, secs, counts, peak = _timed_population(
+        ops, totals, ("linear_step",), label, spec, lin,
+        ProtocolConfig(kind="periodic", period=3), Xp, Yp, mesh=mesh)
+    _assert_same_result(pres.sim, runs["population_linear_rates@0.5"].sim,
+                        label)
+    assert np.array_equal(pres.sim.cumulative_bytes, _oracle_cumulative_bytes(
+        pres.sim, pres.participation, lin.num_params)), label
+    _population_line(label, pres, secs, counts, peak, shards=MESH_SHARDS,
+                     bitwise_single_device=True, bytes_equal_oracle=True,
+                     single_device_rounds_per_s=RATES[
+                         "population_linear_rates@0.5"])
+    del Xp, Yp
+
+    # serve_rff_dynamic on the mesh: 2 slots a shard
+    name, e2e, kernels, arrival, kw = next(
+        c for c in serve_configs() if c[0] == "serve_rff_dynamic")
+    learner, m, pcfg, _ = configs[e2e]
+    X, Y = streams[m]
+    with _Instrumented(KernelServingEngine) as inst:
+        got, secs, counts, peak = timed(
+            "mesh_serve_rff_dynamic", kernels, lambda: serve_stream(
+                learner, pcfg, X, Y,
+                arrivals=make_arrivals(arrival, rate=SERVE_RATE, seed=0),
+                backend="kernels", mesh=mesh, **kw))
+    _assert_same_sim(got.sim, runs[name].sim, "mesh_serve_rff_dynamic")
+    assert len(inst.engines[0].scheduler.pools) == MESH_SHARDS
+    eng = inst.engines[0]
+    ten = eng._tenants[0]
+    rows_err = 0.0
+    gen = torch.Generator().manual_seed(2)
+    placed = eng._models_for_predict(ten)
+    r = m // MESH_SHARDS
+    for k in range(MESH_SHARDS):
+        rows_err = max(rows_err, check_rows(
+            ten.shard_subs[k], placed[k], X[:, k * r:(k + 1) * r], gen,
+            eng.devices[k]))
+    emit({"phase": "mesh", "run": "mesh_serve_rff_dynamic",
+          "shards": MESH_SHARDS, "slots_per_shard": got.slots,
+          "kernel_launches": counts, "requests": got.num_requests,
+          "requests_per_wall_s": got.num_requests / secs,
+          "rounds_per_wall_s": T_ROUNDS / secs,
+          "single_device_rounds_per_wall_s": RATES[name],
+          "predict_launches": got.launches,
+          "bucket_counts": {str(k): v for k, v in
+                            sorted(got.bucket_counts.items())},
+          "host_ms_per_launch_mean": 1e3 * float(np.mean(inst.launch_s)),
+          "host_s_in_launches": float(np.sum(inst.launch_s)),
+          "serve_wall_s": inst.serve_s,
+          "max_memory_allocated": peak, "sim_bitwise_unmeshed": True,
+          "rows_bitwise_predict_one": True,
+          "predict_batch_vs_plain_max_abs_err": rows_err,
+          "event_clock_latency": got.latency_percentiles()})
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the serial loop oracle
+# ---------------------------------------------------------------------------
+
+#: the SV oracle's depth: every round of it records the divergence over
+#: the whole union (a (m tau)^2 form and an m tau x tau Gram a learner),
+#: the dearest rounds of the script
+ORACLE_T_SV = T_ROUNDS
+
+
+def run_oracle_phase(runs) -> None:
+    """``simulation.run_kernel_simulation`` at ``sv_dynamic``'s config
+    (depth ``ORACLE_T_SV``) and ``run_linear_simulation`` at
+    ``linear_periodic``'s, on the card: sync rounds and bytes equal to
+    phase 3's ``engine.run(backend="kernels")``, losses and compression
+    errors within the parity pair, error counts equal."""
+    from repro_torch.core import simulation
+    from repro_torch.data.streams import susy_stream
+
+    configs = {name: (learner, m, pcfg)
+               for name, learner, m, pcfg, _ in e2e_configs()}
+    for name, e2e, T, fn in (
+            ("oracle_sv_dynamic", "sv_dynamic", ORACLE_T_SV,
+             simulation.run_kernel_simulation),
+            ("oracle_linear_periodic", "linear_periodic", T_ROUNDS,
+             simulation.run_linear_simulation)):
+        learner, m, pcfg = configs[e2e]
+        X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn(learner, pcfg, X[:T], Y[:T], device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        want = runs[e2e]
+        # the engine's first T rounds (a round never reads a later one)
+        w_sync = want.sync_rounds[want.sync_rounds < T]
+        assert np.array_equal(got.sync_rounds, w_sync), name
+        assert got.num_syncs == len(w_sync), name
+        assert np.array_equal(got.cumulative_bytes,
+                              want.cumulative_bytes[:T]), name
+        assert np.all(np.isfinite(got.cumulative_loss)), name
+        np.testing.assert_allclose(got.cumulative_loss,
+                                   want.cumulative_loss[:T],
+                                   rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(got.eps_history,
+                                   want.eps_history[:len(w_sync)],
+                                   rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   err_msg=name)
+        errs_equal = bool(np.array_equal(got.cumulative_errors,
+                                         want.cumulative_errors[:T]))
+        emit({"phase": "oracle", "run": name, "m": m, "T": T,
+              "rounds_per_s": T / secs,
+              "engine_rounds_per_s": RATES[e2e],
+              "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
+              "total_loss": got.total_loss,
+              "engine_total_loss": float(want.cumulative_loss[T - 1]),
+              "loss_max_abs_diff": float(np.max(np.abs(
+                  got.cumulative_loss - want.cumulative_loss[:T]))),
+              "eps_max_abs_diff": float(np.max(np.abs(
+                  got.eps_history - want.eps_history[:len(w_sync)]),
+                  initial=0.0)),
+              "errors_equal": errs_equal,
+              "max_memory_allocated": peak})
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2500,6 +2894,7 @@ def main() -> int:
     node_shapes = check_node_shapes(fused, ops, qf, ref,
                                     results["rff"]["by_bucket"], dev, gen)
     slice_shapes = check_slice_shapes(fused, ops, ref, dev, gen)
+    mesh_shapes = check_mesh_shapes(fused, ops, ref, dev, gen)
     torch.cuda.synchronize()
 
     # the runs use deterministic algorithms (after the kernel timings:
@@ -2515,6 +2910,8 @@ def main() -> int:
     run_async(ops, totals, runs)
     grouped = run_sweeps(ops, totals, runs)
     run_population_phase(ops, totals, runs)
+    run_mesh_phase(ops, totals, runs)
+    run_oracle_phase(runs)
     # rff's line at the main path's mix of bucket sizes
     rff_line = results["rff"]
     counts = bucket_counts["serve_rff_dynamic"]
@@ -2579,6 +2976,9 @@ def main() -> int:
                else {}),
             # the sweep's stacked rows and grouped check, the population
             **({"slice_shapes": slice_shapes[name]} if name in slice_shapes
+               else {}),
+            # a mesh shard's shapes (phase 3's learners over 4 shards)
+            **({"mesh_shapes": mesh_shapes[name]} if name in mesh_shapes
                else {}),
             **(grouped if name == "quadform" else {})})
     print(smi, flush=True)

@@ -64,6 +64,15 @@ elementwise code around it), so the configs may share one call and
 each row still equals its solo run's bitwise; ``dist_to_ref_grouped``
 runs several configs' dynamic checks, each against its own reference,
 in one ``quadform`` launch where each config's own check is one.
+
+The mesh's face (``engine.run(mesh=)``, one process driving every
+shard): :func:`shard_rows` cuts a stacked tree into contiguous blocks
+of learners, one per shard device, and :func:`join_rows` concatenates
+the shards' blocks in learner order on one device.  A sharded run
+initializes the whole stack and cuts it, so learner ids (the SV
+ledger's id sets) stay global.  ``dist_to_ref_each`` is the
+reference's per-learner-reference distance (each learner against its
+own slice of a stacked reference).
 """
 from __future__ import annotations
 
@@ -110,6 +119,40 @@ def _gather(models, lids: torch.Tensor):
 def _stack_one(model):
     """One model as a stack of one."""
     return type(model)(*(v[None] for v in model))
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of (nested) NamedTuple trees."""
+    if torch.is_tensor(trees[0]):
+        return fn(*trees)
+    return type(trees[0])(*(tree_map(fn, *leaves) for leaves in zip(*trees)))
+
+
+def shard_rows(tree, devices: Sequence[torch.device]) -> list:
+    """A stacked tree (leading learner axis m, n | m) cut into
+    ``n = len(devices)`` contiguous blocks of m / n learners, block k on
+    ``devices[k]`` as tensors of its own.  One device: ``[tree]``,
+    untouched."""
+    n = len(devices)
+    if n == 1:
+        return [tree]
+    return [tree_map(lambda v: v.chunk(n)[k].to(dev, copy=True), tree)
+            for k, dev in enumerate(devices)]
+
+
+def join_rows(trees: Sequence, device: torch.device):
+    """The shards' blocks concatenated in learner order on ``device``
+    (the reference's tiled ``all_gather``).  One shard: the tree itself."""
+    if len(trees) == 1:
+        return trees[0]
+    return tree_map(lambda *v: torch.cat([t.to(device) for t in v]), *trees)
+
+
+def replicate(tree, devices: Sequence[torch.device]) -> list:
+    """One tree copied to every shard's device.  One device: ``[tree]``."""
+    if len(devices) == 1:
+        return [tree]
+    return [tree_map(lambda v: v.to(dev, copy=True), tree) for dev in devices]
 
 
 def _cohort(mask, device) -> Tuple[torch.Tensor, int]:
@@ -186,6 +229,13 @@ class Substrate:
         raise NotImplementedError
 
     def dist_to_ref(self, models, ref) -> torch.Tensor:
+        raise NotImplementedError
+
+    def dist_to_ref_each(self, models, ref_stacked) -> torch.Tensor:
+        """Per-learner distance to a per-learner reference: ``ref_stacked``
+        carries the same leading learner axis as ``models`` (the
+        reference's stacked Sec. 3 reference).  With every slice equal
+        to one reference it equals ``dist_to_ref`` against it."""
         raise NotImplementedError
 
     def divergence(self, models) -> torch.Tensor:
@@ -474,6 +524,19 @@ class SVSubstrate(Substrate):
             return self._dist_kernels(models, ref)
         return rkhs.stacked_dist_to(self.lcfg.kernel, models, ref)
 
+    def dist_to_ref_each(self, models: SVModel,
+                         ref_stacked: SVModel) -> torch.Tensor:
+        # engaged as dist_to_ref: one quadform launch of 3m forms (or
+        # one launch a group of forms where the budgets differ); a
+        # form's value does not depend on the forms beside it, so an
+        # equal stack gives dist_to_ref's floats
+        if self.backend == "kernels" and _kops().engages(
+                self.lcfg.budget, self.sync_budget):
+            return _kops().rkhs_dist_sq_each_spec(
+                self.lcfg.kernel, models.sv, ref_stacked.sv,
+                rkhs.masked_alpha(models), rkhs.masked_alpha(ref_stacked))
+        return rkhs.dist_sq(self.lcfg.kernel, models, ref_stacked)
+
     def _dist_kernels(self, models: SVModel, ref: SVModel) -> torch.Tensor:
         return _kops().rkhs_dist_sq_spec(
             self.lcfg.kernel, models.sv, ref.sv, rkhs.masked_alpha(models),
@@ -664,6 +727,10 @@ class _PrimalSubstrate(Substrate):
 
     def dist_to_ref(self, models, ref) -> torch.Tensor:
         return torch.sum((models.w - ref.w) ** 2, dim=-1) + (models.b - ref.b) ** 2
+
+    def dist_to_ref_each(self, models, ref_stacked) -> torch.Tensor:
+        # the same expression, the reference broadcast or stacked
+        return self.dist_to_ref(models, ref_stacked)
 
     def divergence(self, models) -> torch.Tensor:
         wbar = torch.mean(models.w, dim=0)

@@ -26,9 +26,11 @@ _MIN_KERNEL = 128    # below this, use the plain expressions
 
 __all__ = ["LAUNCH_COUNTS", "engages", "reset_launch_counts", "gram",
            "sv_predict", "quadform", "rkhs_dist_sq", "rkhs_dist_sq_groups",
+           "rkhs_dist_sq_each",
            "fused_primal_step",
            "rff_features", "gram_spec", "sv_predict_spec", "quadform_spec",
-           "rkhs_dist_sq_spec", "rkhs_dist_sq_groups_spec"]
+           "rkhs_dist_sq_spec", "rkhs_dist_sq_groups_spec",
+           "rkhs_dist_sq_each_spec"]
 
 
 def engages(*dims) -> bool:
@@ -135,6 +137,29 @@ def rkhs_dist_sq_groups(F, G, af, ag, *, kind="gaussian", gamma=1.0,
     return qff + qgg.expand(g, m) - 2.0 * qfg
 
 
+def rkhs_dist_sq_each(F, G, af, ag, *, kind="gaussian", gamma=1.0,
+                      degree=3, coef0=1.0):
+    """||f_i - g_i||_H^2 for m stacked models F (m, M, d), af (m, M)
+    against m stacked references G (m, N, d), ag (m, N): m forms
+    <f_i, f_i>, m forms <g_i, g_i> and m forms <f_i, g_i> — one launch
+    of P = 3m forms when they engage with one shape (M == N), otherwise
+    each group of forms on its own operands.  A form's value depends on
+    its own operands alone, so with every G_i equal to one G this is
+    ``rkhs_dist_sq(F, G, ...)`` bitwise."""
+    kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    m, M = af.shape
+    if M == ag.shape[1] and engages(M):
+        q = quadform(torch.cat([F, G, F]), torch.cat([F, G, G]),
+                     torch.cat([af, ag, af]), torch.cat([af, ag, ag]),
+                     **kw).reshape(3, m)
+        qff, qgg, qfg = q[0], q[1], q[2]
+    else:
+        qff = quadform(F, F, af, af, **kw)
+        qgg = quadform(G, G, ag, ag, **kw)
+        qfg = quadform(F, G, af, ag, **kw)
+    return qff + qgg - 2.0 * qfg
+
+
 def fused_primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
                       loss="hinge", eta=0.5, lam=0.01, force_kernel=False):
     """One fused online round for B stacked primal learners ->
@@ -183,3 +208,7 @@ def rkhs_dist_sq_spec(spec, F, G, af, ag):
 
 def rkhs_dist_sq_groups_spec(spec, F, G, af, ag):
     return rkhs_dist_sq_groups(F, G, af, ag, **_kw(spec))
+
+
+def rkhs_dist_sq_each_spec(spec, F, G, af, ag):
+    return rkhs_dist_sq_each(F, G, af, ag, **_kw(spec))

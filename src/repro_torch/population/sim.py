@@ -74,12 +74,10 @@ def run_population(
     ``X`` / ``Y`` carry the whole population's stream; learners outside
     a round's cohort never touch their row.  ``participation``
     overrides the spec's mask (same (T, m) shape): an all-True override
-    reproduces ``engine.run`` bitwise.
+    reproduces ``engine.run`` bitwise.  ``mesh`` (a
+    ``launch.mesh.LearnerMesh``) shards the population over its devices
+    exactly as ``engine.run`` documents.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_population(mesh=...) is the mesh engine, ROADMAP.md "
-            "'Mesh engine' (not ported yet)")
     T, m = np.shape(X)[:2]
     if m != spec.m_total:
         raise ValueError(
@@ -91,7 +89,7 @@ def run_population(
         if mask.shape != (T, m):
             raise ValueError(
                 f"participation shape {mask.shape} != {(T, m)}")
-    sim = engine.run(learner, pcfg, X, Y, topology=topology,
+    sim = engine.run(learner, pcfg, X, Y, mesh=mesh, topology=topology,
                      record_divergence=record_divergence,
                      participation=mask, device=device)
     return PopulationResult(

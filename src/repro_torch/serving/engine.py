@@ -33,8 +33,15 @@ on the seeded event clock and depends on the protocol view only
 through the sync rounds and their bytes, so it equals the reference's
 exactly (tests/test_torch_serving.py).
 
-Single device: ``mesh=`` (home-shard routing over a learner mesh)
-raises NotImplementedError until the mesh slice (ROADMAP.md).
+Mesh-awareness: pass ``mesh=`` (``launch.mesh.make_learner_mesh``;
+``launch.serve.make_kernel_serving_engine`` builds one) and the engine
+routes each request to its *home shard*, a contiguous block of m / n
+learners (``home_shard``): a chunk never mixes learners of two shards,
+each shard has its own slot pool, and the predict models are placed
+per shard (each block on its shard's device, placed again after every
+round), so a chunk's ``predict_batch`` launches on its home shard's
+device.  Rounds stay on the lead device, as the reference's do, so a
+mesh server's ``sim`` equals the unmeshed server's bitwise.
 """
 from __future__ import annotations
 
@@ -47,10 +54,10 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import device as device_mod
 from ..core import substrate as substrate_mod
 from ..core.engine import (allreduce_cost, assemble_sim_result,
-                           init_protocol_carry, make_protocol_step, params_of)
+                           init_protocol_carry, make_protocol_step, params_of,
+                           shard_devices)
 from ..core.protocol import ProtocolConfig
 from ..core.simulation import SimResult
 from ..core.substrate import Substrate
@@ -200,18 +207,24 @@ def _series(rows: list) -> np.ndarray:
 
 class _Tenant:
     """One (substrate, protocol) instance behind the shared engine: its
-    substrate on the device, its carry, feedback queues and per-round
-    series.  Never touches the scheduler."""
+    substrate on the lead device (``devices[0]``, where its rounds run)
+    and on each shard's, its carry, its predict models placed per shard,
+    feedback queues and per-round series.  Never touches the
+    scheduler."""
 
     def __init__(self, tid: int, sub: Substrate, pcfg: ProtocolConfig,
                  m: int, topology: str, record_divergence: bool,
-                 device: torch.device, name: Optional[str] = None):
+                 devices: Sequence[torch.device],
+                 name: Optional[str] = None):
         self.tid = tid
         self.name = name or f"tenant{tid}"
         if topology == "allreduce":
             allreduce_cost(sub, m)      # refuse an int32 overflow up front
-        # constants (the RFF projection) go to the device once
+        # constants (the RFF projection) go to each device once
+        device = devices[0]
         self.sub = sub.on(device)
+        self.shard_subs = [self.sub] + [sub.on(dev) for dev in devices[1:]]
+        self.placed: Optional[list] = None     # the shards' predict models
         self.pcfg = pcfg
         self.record_divergence = bool(record_divergence)
         self.params = params_of(pcfg)
@@ -255,6 +268,9 @@ class KernelServingEngine:
     own configuration" (``backend="kernels"`` is the counterpart of
     the reference's ``"pallas"``), and ``device`` is where the models
     live (``None``: the CUDA card; ``"cpu"`` runs the plain versions).
+    ``mesh`` (a ``launch.mesh.LearnerMesh``; m must divide evenly, and
+    ``device``, if given, must be its lead device) routes each request
+    to its home shard; ``slots`` is then per shard.
 
     ``tracer`` (a ``telemetry.Tracer``) records the request lifecycle
     on the simulated clock, event for event as the reference does.
@@ -286,10 +302,6 @@ class KernelServingEngine:
         max_wait: Optional[float] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "KernelServingEngine(mesh=...) routes requests over a learner "
-                "mesh, ROADMAP.md 'Mesh engine' (not ported yet)")
         if m < 1:
             raise ValueError(f"need at least one learner, got m={m}")
         if tick_interval <= 0:
@@ -303,7 +315,12 @@ class KernelServingEngine:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
 
-        self.device = device_mod.resolve(device)
+        # home-shard routing (mesh mode): shard k holds learners
+        # [k m/n, (k + 1) m/n) on devices[k]; rounds run on devices[0]
+        self.devices = shard_devices(mesh, int(m), device)
+        self.device = self.devices[0]
+        self._n_shards = len(self.devices)
+        self._per_shard = int(m) // self._n_shards
         self.m = int(m)
         self.topology = topology
         self.tick_interval = float(tick_interval)
@@ -327,7 +344,7 @@ class KernelServingEngine:
             clock=self.clock,
             predict_fn=self._predict_chunk,
             shard_of=self.home_shard,
-            n_shards=1,
+            n_shards=self._n_shards,
             buckets=self.buckets,
             predict_cost=self.predict_cost,
             slots=slots,
@@ -384,7 +401,7 @@ class KernelServingEngine:
         rec = (self.record_divergence if record_divergence is None
                else bool(record_divergence))
         ten = _Tenant(len(self._tenants), sub, pcfg, self.m, self.topology,
-                      rec, self.device, name=name)
+                      rec, self.devices, name=name)
         self._tenants.append(ten)
         return ten.tid
 
@@ -397,8 +414,9 @@ class KernelServingEngine:
     # -- request ingress -----------------------------------------------------
 
     def home_shard(self, learner: int) -> int:
-        """The shard holding this learner's model: 0 (single device)."""
-        return 0
+        """The mesh shard holding this learner's model slice (0 when
+        unmeshed): contiguous blocks of m / n_shards learners."""
+        return int(learner) // self._per_shard
 
     def _check_ingress(self, x, learner: int, at: float) -> np.ndarray:
         x = np.asarray(x, np.float32)
@@ -463,22 +481,35 @@ class KernelServingEngine:
 
     # -- the predict path (called by the scheduler) --------------------------
 
+    def _models_for_predict(self, ten: _Tenant) -> list:
+        """The tenant's models placed per shard (one block a shard, on
+        its device), placed again after every round."""
+        if ten.placed is None:
+            ten.placed = substrate_mod.shard_rows(
+                ten.sub.models_of(ten.carry[0]), self.devices)
+        return ten.placed
+
     def _predict_chunk(self, chunk: List[PredictRequest],
                        bucket: int) -> np.ndarray:
         """One padded-bucket predict for a (tenant, shard) chunk — the
         scheduler's ``predict_fn``: the bucket is built on the host,
-        moved to the device, and answered by one ``predict_batch``
-        call.  Padding rows reuse the chunk's first learner id."""
+        moved to the home shard's device, and answered there by one
+        ``predict_batch`` call on the shard's models.  Padding rows
+        reuse the chunk's first learner id, so the gather never leaves
+        the home shard."""
         ten = self._tenants[chunk[0].tenant]
-        models = ten.sub.models_of(ten.carry[0])
-        lids = np.full((bucket,), chunk[0].learner, np.int64)
+        shard = self.home_shard(chunk[0].learner)
+        models = self._models_for_predict(ten)[shard]
+        dev = self.devices[shard]
+        base = shard * self._per_shard
+        lids = np.full((bucket,), chunk[0].learner - base, np.int64)
         Xb = np.zeros((bucket, self.d), np.float32)
         for i, r in enumerate(chunk):
-            lids[i] = r.learner
+            lids[i] = r.learner - base
             Xb[i] = r.x
-        yh = ten.sub.predict_batch(
-            models, torch.as_tensor(lids, device=self.device),
-            torch.as_tensor(Xb, device=self.device))
+        yh = ten.shard_subs[shard].predict_batch(
+            models, torch.as_tensor(lids, device=dev),
+            torch.as_tensor(Xb, device=dev))
         ten.served.extend(chunk)
         return yh.cpu().numpy()
 
@@ -492,6 +523,7 @@ class KernelServingEngine:
         xs = (torch.as_tensor(x_row, device=self.device),
               torch.as_tensor(y_row, device=self.device), ten.t)
         ten.carry, outs = ten.round_op(ten.params, ten.carry, xs)
+        ten.placed = None       # the next launch places the new models
         loss, err, nbytes, div, fired, eps = outs
         nbytes = int(nbytes)        # the int 0 unless the round synced
         ten.loss_rows.append(loss)

@@ -850,3 +850,150 @@ def test_all_true_mask_is_run_bitwise(family, cuda):
     assert ops.LAUNCH_COUNTS[step] == 50
     _assert_same_sim(part, engine.run(learner, p, X, Y, participation=mask,
                                       **kw), f"{family} repeat")
+
+
+def _mesh_learner(family):
+    """``_sweep_learner`` with m divisible by 4 shards that each engage
+    (linear: 128 learners a shard)."""
+    learner, m, delta, step = _sweep_learner(family)
+    return learner, (512 if family == "linear" else m), delta, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sv", "rff", "linear"])
+def test_four_shard_mesh_on_one_card_is_the_single_device_run(family, cuda):
+    """``engine.run(mesh=)`` with 4 shards on ``cuda:0``: every shard
+    launches its own round kernel, and the run, a masked run and a
+    sweep equal the single-device ones bitwise."""
+    from repro_torch.launch.mesh import make_learner_mesh
+    learner, m, delta, step = _mesh_learner(family)
+    T = 60
+    X, Y = susy_stream(T, m, d=18, seed=7)
+    mesh = make_learner_mesh(devices=["cuda:0"] * 4)
+    grid = [ProtocolConfig(kind="dynamic", delta=delta, mini_batch=3),
+            ProtocolConfig(kind="periodic", period=7)]
+    kw = dict(backend="kernels", record_divergence=True)
+    for p in grid:
+        solo = engine.run(learner, p, X, Y, device=cuda, **kw)
+        ops.reset_launch_counts()
+        got = engine.run(learner, p, X, Y, mesh=mesh, **kw)
+        assert ops.LAUNCH_COUNTS[step] == 4 * T, dict(ops.LAUNCH_COUNTS)
+        _assert_same_sim(got, solo, f"{family} {p.kind}")
+        assert solo.num_syncs > 0
+    mask = np.random.default_rng(7).random((T, m)) < 0.7
+    _assert_same_sim(
+        engine.run(learner, grid[0], X, Y, participation=mask, mesh=mesh,
+                   **kw),
+        engine.run(learner, grid[0], X, Y, participation=mask, device=cuda,
+                   **kw), f"{family} masked")
+    sw = engine.sweep(learner, grid, X, Y, mesh=mesh, **kw)
+    one = engine.sweep(learner, grid, X, Y, device=cuda, **kw)
+    for i in range(len(grid)):
+        _assert_same_sim(sw[i], one[i], f"{family} sweep[{i}]")
+
+
+@pytest.mark.cuda
+def test_mesh_serving_on_one_card_is_the_unmeshed_serving(cuda):
+    """RFF serving on 4 shards of ``cuda:0``: ``sim`` bitwise the
+    unmeshed engine's, predict chunks launched on their home shard."""
+    from repro_torch.launch.mesh import make_learner_mesh
+    learner, m, delta, _ = _mesh_learner("rff")
+    X, Y = susy_stream(40, m, d=18, seed=8)
+    p = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=3)
+    kw = dict(arrivals=make_arrivals("poisson", rate=8.0, seed=0),
+              backend="kernels", policy="continuous", slots=2)
+    base = serve_stream(learner, p, X, Y, device=cuda, **kw)
+    ops.reset_launch_counts()
+    got = serve_stream(learner, p, X, Y,
+                       mesh=make_learner_mesh(devices=["cuda:0"] * 4), **kw)
+    assert ops.LAUNCH_COUNTS["rff"] == got.launches > 0
+    _assert_same_sim(got.sim, base.sim, "mesh serving")
+
+
+@pytest.mark.cuda
+def test_kernels_at_a_shards_shapes_match_plain(cuda):
+    """A full-width shard's shapes (32 SV learners and 1024 linear ones
+    over 4 shards): ``sv_predict`` at B 8, the 17-form check,
+    ``rkhs_dist_sq_each``'s 24 forms (bitwise the check on an equal
+    stack), the RFF step at B 8 and the linear step at B 256."""
+    gen = torch.Generator().manual_seed(91)
+    kw = dict(kind="gaussian", gamma=0.05)
+    m, N = 8, 1024
+    X, SV = _randn(gen, m, 18, dev=cuda), _randn(gen, m, N, 18, dev=cuda)
+    A = _randn(gen, m, N, dev=cuda)
+    _close(fused.sv_predict(X, SV, A, **kw), ref.sv_predict_ref(X, SV, A, **kw),
+           "sv_predict B=8")
+    F, G = SV, _randn(gen, N, 18, dev=cuda)
+    af, ag = A.clone(), _randn(gen, N, dev=cuda)
+    af[:, N // 2:] = 0.0
+    ops.reset_launch_counts()
+    got = ops.rkhs_dist_sq(F, G, af, ag, **kw)
+    each = ops.rkhs_dist_sq_each(F, G.expand(m, N, 18).contiguous(), af,
+                                 ag.expand(m, N).contiguous(), **kw)
+    assert dict(ops.LAUNCH_COUNTS) == {"quadform": 2}
+    assert torch.equal(each, got)
+    q = ref.quadform_ref(torch.cat([F, G[None], F]),
+                         torch.cat([F, G[None], G.expand(m, N, 18)]),
+                         torch.cat([af, ag[None], af]),
+                         torch.cat([af, ag[None], ag.expand(m, N)]), **kw)
+    _close(got, q[:m] + q[m:m + 1] - 2.0 * q[m + 1:], "17-form check")
+    for B, D, W in ((8, 2048, True), (256, 18, False)):
+        x, y = _randn(gen, B, 18, dev=cuda), torch.sign(
+            _randn(gen, B, dev=cuda))
+        w, b = _randn(gen, B, D, dev=cuda), _randn(gen, B, dev=cuda)
+        extra = (dict(W=_randn(gen, D, 18, dev=cuda),
+                      bias=_randn(gen, D, dev=cuda), scale=(2.0 / D) ** 0.5)
+                 if W else {})
+        outs = fused.primal_step(x, y, w, b, loss="hinge", eta=0.5, lam=0.01,
+                                 **extra)
+        wants = ref.primal_step_ref(x, y, w, b, loss="hinge", eta=0.5,
+                                    lam=0.01, **extra)
+        for o, wt in zip(outs, wants):
+            _close(o, wt, f"primal_step B={B} D={D}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sv", "rff", "linear"])
+def test_mesh_across_cards_is_the_single_device_run(family, cuda):
+    """One shard a card (``make_learner_mesh()``): each shard launches on
+    its own card, the syncs gather on ``cuda:0``, and the run, a masked
+    run and a routed serving run equal the single-device ones bitwise.
+    Needs two cards or more."""
+    from repro_torch.launch.mesh import make_learner_mesh
+    from repro_torch.launch.serve import make_kernel_serving_engine
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA cards or more")
+    learner, m, delta, step = _mesh_learner(family)
+    m = m * cards // 4 if family == "linear" else 8 * cards
+    T = 40
+    X, Y = susy_stream(T, m, d=18, seed=9)
+    mesh = make_learner_mesh()
+    assert [d.index for d in mesh.devices] == list(range(cards))
+    p = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=3)
+    kw = dict(backend="kernels", record_divergence=True)
+    solo = engine.run(learner, p, X, Y, device=cuda, **kw)
+    ops.reset_launch_counts()
+    _assert_same_sim(engine.run(learner, p, X, Y, mesh=mesh, **kw), solo,
+                     f"{family} across {cards} cards")
+    assert ops.LAUNCH_COUNTS[step] == cards * T
+    assert solo.num_syncs > 0
+    mask = np.random.default_rng(9).random((T, m)) < 0.7
+    _assert_same_sim(
+        engine.run(learner, p, X, Y, participation=mask, mesh=mesh, **kw),
+        engine.run(learner, p, X, Y, participation=mask, device=cuda, **kw),
+        f"{family} masked across cards")
+    eng = make_kernel_serving_engine(learner, p, m, backend="kernels")
+    base = KernelServingEngine(learner, p, m, backend="kernels", device=cuda)
+    reqs = {}
+    for e in (eng, base):
+        for t in range(T):
+            for i in range(m):
+                e.feedback(X[t, i], Y[t, i], learner=i, at=float(t + 1))
+        rng = np.random.default_rng(0)
+        reqs[id(e)] = [e.submit(X[int(rng.integers(T)), lid], learner=lid,
+                                at=float(rng.uniform(0, T)))
+                       for lid in rng.integers(m, size=64).tolist()]
+    got, want = eng.serve(), base.serve()
+    _assert_same_sim(got.sim, want.sim, f"{family} serving across cards")
+    assert [r.yhat for r in reqs[id(eng)]] == [r.yhat for r in reqs[id(base)]]

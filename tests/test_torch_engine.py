@@ -175,15 +175,18 @@ def test_engine_run_variants_match_reference(variant, backend_parity):
 
 
 def test_engine_run_refuses_what_is_not_ported():
-    """``mesh=`` still raises (the mesh engine); ``participation=`` and
-    ``sweep``, which raised here until they were ported, now run: an
-    all-True mask and a one-config sweep each give ``run``'s ledger."""
+    """What ``run`` and ``sweep`` refuse: a ``mesh`` that is not a
+    ``launch.mesh.LearnerMesh`` (TypeError; the mesh engine, which
+    raised NotImplementedError here until it was ported, takes a
+    LearnerMesh); ``participation=`` and ``sweep``, which raised here
+    until they were ported, run: an all-True mask and a one-config
+    sweep each give ``run``'s ledger."""
     X, Y = susy_stream(4, 2, d=D_IN, seed=0)
     tl = TLearner(algo="linear_sgd", dim=D_IN)
     p = TProtocol(kind="periodic", period=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LearnerMesh"):
         teng.run(tl, p, X, Y, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LearnerMesh"):
         teng.sweep(tl, [p], X, Y, device="cpu", mesh=object())
     solo = teng.run(tl, p, X, Y, device="cpu")
     masked = teng.run(tl, p, X, Y, device="cpu",

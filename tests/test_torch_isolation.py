@@ -5,8 +5,9 @@
 - a fresh interpreter that imports the port (and builds nothing) has
   neither in ``sys.modules``;
 - the entry points (``engine.run``, ``engine.sweep``,
-  ``run_population``, ``run_async_simulation``, the LM's) resolve
-  ``device=None`` to the CUDA card and raise where there is none.
+  ``run_population``, ``run_async_simulation``, the serial oracle,
+  ``launch.mesh.make_learner_mesh``, the LM's) resolve ``device=None``
+  to the CUDA card and raise where there is none.
 """
 import ast
 import os
@@ -22,6 +23,8 @@ from repro_torch import device as tdevice
 from repro_torch.core import engine as teng
 from repro_torch.core.learners import LearnerConfig
 from repro_torch.core.protocol import ProtocolConfig
+from repro_torch.core.simulation import run_linear_simulation
+from repro_torch.launch.mesh import make_learner_mesh
 from repro_torch.population import PopulationSpec, run_population
 from repro_torch.runtime import AsyncProtocolConfig, run_async_simulation
 
@@ -74,6 +77,9 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch import population\n"
         "from repro_torch.population import availability, sim\n"
         "from repro_torch.telemetry import monitor\n"
+        "import repro_torch.launch\n"
+        "from repro_torch.launch import mesh, serve\n"
+        "from repro_torch.core import simulation\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -106,6 +112,11 @@ def test_default_device_is_cuda_and_raises_without_it():
         run_async_simulation(LearnerConfig(algo="linear_sgd", dim=4),
                              AsyncProtocolConfig(kind="periodic", period=2),
                              X, Y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_linear_simulation(LearnerConfig(algo="linear_sgd", dim=4),
+                              ProtocolConfig(kind="periodic", period=2), X, Y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_learner_mesh(2)
     assert tdevice.resolve("cpu").type == "cpu"
 
 

@@ -545,7 +545,7 @@ def test_run_population_validates_shapes():
     with pytest.raises(ValueError, match="participation"):
         teng.run(lcfg, pcfg, X, Y, participation=np.ones((5, 2), bool),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LearnerMesh"):      # not a mesh
         tpop.run_population(tpop.PopulationSpec(m_total=3), lcfg, pcfg, X, Y,
                             mesh=object(), device="cpu")
 

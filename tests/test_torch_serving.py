@@ -403,10 +403,11 @@ def test_ingress_validation_raises_where_the_reference_raises():
 def test_mesh_and_default_device_are_refused_as_documented():
     lin = TLearner(algo="linear_sgd", dim=D_IN)
     pcfg = TProtocol(kind="periodic", period=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh must be a launch.mesh.LearnerMesh
+    with pytest.raises(TypeError, match="LearnerMesh"):
         TEngine(lin, pcfg, 2, mesh=object(), device="cpu")
     X, Y = susy_stream(4, 2, d=D_IN, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LearnerMesh"):
         tserve(lin, pcfg, X, Y, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -279,7 +279,7 @@ def test_sweep_validates_inputs():
     with pytest.raises(ValueError):      # the stream's d must match
         teng.sweep(TLearner(algo="linear_sgd", dim=D_IN + 1), [p], X, Y,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LearnerMesh"):      # not a mesh
         teng.sweep(sv, [p], X, Y, device="cpu", mesh=object())
 
 

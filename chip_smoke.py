@@ -155,6 +155,33 @@ non-zero with no result line:
    card: sync rounds and bytes equal to phase 3's runs, losses and
    compression errors within the parity pair; the SV oracle's plain
    compression builds the (m tau)^2 Gram, whose peak is reported.
+12. ``train``: the LM protocol trainer (``launch.train``) with
+   ``qwen2_5_3b`` at full width and depth (36 layers, d 2048, bf16,
+   ``use_flash=False``, weights drawn on the card from seed 0 after
+   ``lm_serve`` freed its own), m = 2 learners of 1 x 256 tokens a
+   round from ``token_stream(seed=0)``, sgd (lr 0.05, momentum 0, clip
+   1.0): ``train_periodic`` (period 4) and ``train_dynamic`` (mini_batch
+   1, delta the geometric mean of the first round's and the largest
+   pre-sync distance ``train_periodic`` recorded), T = 8 each.  After
+   every sync each learner's parameters are bitwise equal and the
+   reference is bitwise their float32 average; after a quiet round the
+   reference is bitwise unchanged; ``syncs`` and ``bytes_sent`` equal a
+   host recount (float32, as the carry); every loss is finite; each run
+   repeats bitwise from seed 0 (deterministic algorithms on); no CUDA
+   kernel of the port launches; peak memory under the card's.  Then
+   ``TRAIN_TIMED_T`` rounds timed with CUDA events, with deterministic
+   algorithms on and then off, and with the mode off one by
+   ``telemetry.probe.time_fn`` and one profiled (the busy share); the
+   smoke model in float32 on the card against the CPU from one state
+   (adamw with ``continuous``, sgd momentum 0.9 with per-group
+   ``dynamic``: equal sync counts and bytes, losses and parameters
+   within the parity pair); benchmarks/bench_adaptive.py's five configs
+   through ``protocol.make_protocol_step`` on the card and on the CPU
+   (equal syncs and bytes); a bf16 smoke ``TrainState`` through
+   ``checkpoint.save_step`` / ``restore``, bitwise; and under
+   ``telemetry.CompileCounter`` a second value-equal ``engine.run`` of
+   ``sv_dynamic`` and a second ``engine.sweep`` of the RFF grid, each
+   adding no compile.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary (with each kernel's ``slice_shapes`` and
@@ -2823,6 +2850,451 @@ def run_lm_serve(ops, totals) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the LM protocol trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_M = 2               # learners
+TRAIN_BATCH = 1           # sequences a learner a round
+TRAIN_SEQ = 256           # tokens a sequence
+TRAIN_T = 8               # rounds a run
+TRAIN_LR = 0.05           # the reference CLI's (repro/launch/train.py)
+TRAIN_PERIOD = 4          # the reference CLI's
+TRAIN_TIMED_T = 4         # rounds timed without the checks
+TRAIN_SMOKE_T = 6         # rounds of the card-against-CPU runs
+ADAPTIVE_T = 600          # benchmarks/bench_adaptive.py's T, M, D
+ADAPTIVE_M = 4
+ADAPTIVE_D = 8
+PROBE_T = 50              # rounds of the compile-counter runs
+#: benchmarks/bench_adaptive.py:57-68, its five configs
+ADAPTIVE_CONFIGS = (
+    ("fixed_delta_1e-3", dict(kind="dynamic", delta=1e-3)),
+    ("fixed_delta_1e1", dict(kind="dynamic", delta=1e1)),
+    ("adaptive_rate10%_from_1e-3",
+     dict(kind="dynamic", delta=1e-3, delta_schedule="adaptive",
+          target_sync_rate=0.10, adapt_up=2.0)),
+    ("adaptive_rate10%_from_1e1",
+     dict(kind="dynamic", delta=1e1, delta_schedule="adaptive",
+          target_sync_rate=0.10, adapt_up=2.0)),
+    ("sqrt_schedule", dict(kind="dynamic", delta=5.0, delta_schedule="sqrt")),
+)
+
+
+class _ProtocolWatch:
+    """While active, every ``protocol.apply_protocol`` call is checked:
+    after a sync every learner's parameters are bitwise equal and the
+    reference is bitwise the plain average of the learners it was given
+    (float32 sum over learners, divided by m, rounded once); after a
+    quiet round the reference is the one it was given, bitwise.  Records
+    each round's flag and each learner's ||f_i - r||^2."""
+
+    def __init__(self):
+        from repro_torch.core import protocol
+        self.mod, self.orig = protocol, protocol.apply_protocol
+        self.flags, self.dists = [], []
+
+    def __enter__(self):
+        self.mod.apply_protocol = self._checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.apply_protocol = self.orig
+
+    def _checked(self, cfg, stacked, state, **kw):
+        from repro_torch.tree import leaves
+        proto = self.mod
+        self.dists.append(
+            proto._sq_dist_to(stacked, state.reference).tolist())
+        out, new = self.orig(cfg, stacked, state, **kw)
+        synced = int(new.syncs) - int(state.syncs)
+        assert synced in (0, 1), synced
+        self.flags.append(bool(synced))
+        if synced:
+            m = leaves(out)[0].shape[0]
+            for x, r, o in zip(leaves(stacked), leaves(new.reference),
+                               leaves(out)):
+                avg = (sum(x[i].float() for i in range(m)) / m).to(x.dtype)
+                for i in range(m):
+                    assert torch.equal(o[i], o[0]), "replicas differ"
+                    assert torch.equal(r[i], avg), "reference != average"
+        else:
+            assert out is stacked
+            for r, r0 in zip(leaves(new.reference), leaves(state.reference)):
+                assert torch.equal(r, r0), "a quiet round moved the reference"
+        return out, new
+
+
+def _train_run(cfg, pcfg, opt_cfg, batches, dev) -> dict:
+    """One trainer run from seed 0: per round the loss, the flag, the
+    distances and the device ms (CUDA events), every sync checked by
+    ``_ProtocolWatch``; the counters held to a host recount."""
+    from repro_torch.core import protocol
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, tree_map
+
+    state = train.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, TRAIN_M, opt_cfg,
+        device=dev)
+    one = tree_map(lambda x: x[0], state.params)
+    charge = np.float32(2 * TRAIN_M * protocol.model_bytes(one))
+    step = train.make_train_step(cfg, pcfg, opt_cfg)
+    losses, events = [], []
+    with _ProtocolWatch() as watch:
+        for batch in batches:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, loss = step(state, batch)
+            e1.record()
+            events.append((e0, e1))
+            losses.append(loss)
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)), losses
+    assert int(state.step) == int(state.pstate.step) == len(batches)
+    assert int(state.pstate.syncs) == sum(watch.flags)
+    want = np.float32(0.0)
+    for flag in watch.flags:
+        want = np.float32(want + (charge if flag else np.float32(0.0)))
+    assert float(state.pstate.bytes_sent) == float(want), \
+        (float(state.pstate.bytes_sent), float(want))
+    return {"state": state, "losses": losses, "flags": watch.flags,
+            "dists": watch.dists, "charge": float(charge),
+            "n_params": protocol.model_num_params(one),
+            "checked_round_ms": [a.elapsed_time(b) for a, b in events]}
+
+
+def _smoke_on_card_and_cpu(dev) -> list:
+    """``qwen2_5_3b.smoke()`` in float32: the trainer on the card and on
+    the CPU from one state carried across; sync rounds and bytes equal,
+    losses and parameters within the parity pair."""
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.launch import train
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get(LM_ARCH).smoke()
+    out = []
+    for name, opt_cfg, pcfg in (
+            ("adamw_continuous",
+             OptimizerConfig(kind="adamw", lr=1e-3, grad_clip=1.0),
+             ProtocolConfig(kind="continuous")),
+            ("sgd_momentum_dynamic_per_group",
+             OptimizerConfig(kind="sgd", lr=0.05, momentum=0.9,
+                             grad_clip=1.0),
+             ProtocolConfig(kind="dynamic", delta=0.05, per_group=True))):
+        step = train.make_train_step(cfg, pcfg, opt_cfg)
+        cpu = train.init_train_state(0, cfg, TRAIN_M, opt_cfg, device="cpu")
+        card = tree_map(lambda x: x.to(dev) if torch.is_tensor(x) else x, cpu)
+        rng = np.random.default_rng(0)
+        loss_err = 0.0
+        for t in range(TRAIN_SMOKE_T):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                (TRAIN_M, 2, 17)))
+            batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+            cpu, lc = step(cpu, batch)
+            card, lg = step(card, {k: v.to(dev) for k, v in batch.items()})
+            assert int(card.pstate.syncs) == int(cpu.pstate.syncs), (name, t)
+            assert float(card.pstate.bytes_sent) == \
+                float(cpu.pstate.bytes_sent), (name, t)
+            loss_err = max(loss_err, close(lg.cpu(), lc, f"{name} loss {t}"))
+        param_err = max(close(g.cpu(), w, f"{name} params")
+                        for g, w in zip(leaves(card.params),
+                                        leaves(cpu.params)))
+        out.append({"run": name, "rounds": TRAIN_SMOKE_T,
+                    "syncs": int(cpu.pstate.syncs),
+                    "bytes_sent": float(cpu.pstate.bytes_sent),
+                    "loss_max_abs_err": loss_err,
+                    "param_max_abs_err": param_err})
+    return out
+
+
+def _adaptive_on_card_and_cpu(dev) -> list:
+    """benchmarks/bench_adaptive.py's protocol (linear hinge learners on
+    a drifting stream, its five configs) through
+    ``protocol.make_protocol_step`` on the card and on the CPU: equal
+    sync counts and bytes."""
+    from repro_torch.core import protocol
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data.streams import drifting_stream
+
+    def local_update(model, ex):
+        x, y = ex
+        ell = torch.clamp(1.0 - y * (model["w"] @ x), min=0.0)
+        g = torch.where(ell > 0, -y, torch.zeros_like(y))
+        return {"w": model["w"] - 0.2 * g * x}, ell
+
+    X, Y = drifting_stream(ADAPTIVE_T, ADAPTIVE_M, d=ADAPTIVE_D, seed=0,
+                           drift_every=ADAPTIVE_T // 4)
+    out = []
+    for name, kw in ADAPTIVE_CONFIGS:
+        step = protocol.make_protocol_step(ProtocolConfig(**kw), local_update)
+        got = {}
+        for where in ("cpu", dev):
+            Xd = torch.as_tensor(X, device=where)
+            Yd = torch.as_tensor(Y, device=where)
+            st = {"w": torch.zeros((ADAPTIVE_M, ADAPTIVE_D), device=where)}
+            state = protocol.init_state(
+                {"w": torch.zeros((ADAPTIVE_D,), device=where)}, ADAPTIVE_M)
+            t0 = time.perf_counter()
+            half = 0
+            for t in range(ADAPTIVE_T):
+                st, state, _ = step(st, state, (Xd[t], Yd[t]))
+                if t == ADAPTIVE_T // 2:
+                    half = int(state.syncs)
+            got[str(where)] = (int(state.syncs), float(state.bytes_sent),
+                               (int(state.syncs) - half)
+                               / (ADAPTIVE_T - ADAPTIVE_T // 2),
+                               time.perf_counter() - t0)
+        card, cpu = got[str(dev)], got["cpu"]
+        assert card[:2] == cpu[:2], (name, card, cpu)
+        out.append({"config": name, "syncs": card[0], "bytes_sent": card[1],
+                    "rate_second_half": card[2],
+                    "card_rounds_per_s": ADAPTIVE_T / card[3],
+                    "cpu_rounds_per_s": ADAPTIVE_T / cpu[3]})
+    return out
+
+
+def _compile_counts(dev) -> dict:
+    """A second value-equal ``engine.run`` of ``sv_dynamic`` and a second
+    ``engine.sweep`` of the warm RFF group compile nothing."""
+    from repro_torch.core import engine
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.telemetry import CompileCounter
+
+    configs = {name: (learner, m, pcfg)
+               for name, learner, m, pcfg, _ in e2e_configs()}
+    out = {}
+    learner, m, pcfg = configs["sv_dynamic"]
+    X, Y = susy_stream(PROBE_T, m, d=D_IN, seed=0)
+    with CompileCounter() as first:
+        a = engine.run(learner, pcfg, X, Y, backend="kernels", device=dev)
+    with CompileCounter() as second:
+        b = engine.run(dataclasses.replace(learner),
+                       dataclasses.replace(pcfg), X, Y, backend="kernels",
+                       device=dev)
+    assert second.compiles == 0, second.events
+    _assert_same_result(a, b, "probe sv_dynamic")
+    out["engine_run"] = {"first": first.compiles, "second": second.compiles}
+    name, learner, m, grid, *_ = next(c for c in sweep_configs()
+                                      if c[0] == "sweep_rff_dynamic")
+    X, Y = susy_stream(PROBE_T, m, d=D_IN, seed=0)
+    with CompileCounter() as first:
+        engine.sweep(learner, grid, X, Y, backend="kernels", device=dev)
+    with CompileCounter() as second:
+        engine.sweep(learner, list(grid), X, Y, backend="kernels", device=dev)
+    assert second.compiles == 0, second.events
+    out["engine_sweep"] = {"first": first.compiles, "second": second.compiles}
+    return out
+
+
+def _checkpoint_round_trip(dev) -> dict:
+    """A smoke ``TrainState`` (bf16) saved on the card restores bitwise."""
+    import shutil
+
+    from repro_torch import checkpoint
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get(LM_ARCH).smoke().with_(dtype="bfloat16")
+    opt_cfg = OptimizerConfig(kind="adamw", lr=1e-3)
+    state = train.init_train_state(0, cfg, TRAIN_M, opt_cfg, device=dev)
+    d = OUT_DIR / "train_ckpt"
+    try:
+        path = checkpoint.save_step(str(d), 0, state)
+        assert checkpoint.latest_step(str(d)) == path
+        got = checkpoint.restore(path, train.init_train_state(
+            1, cfg, TRAIN_M, opt_cfg, device=dev))
+        n = 0
+        for g, w in zip(leaves(got), leaves(state)):
+            assert g.device == w.device and torch.equal(g, w), "restore differs"
+            n += 1
+        size = Path(path).stat().st_size
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"leaves": n, "bytes": size}
+
+
+def run_train_phase(ops) -> None:
+    """The LM protocol trainer at ``qwen2_5_3b``'s full width and depth
+    (36 layers, d 2048, bf16, ``use_flash=False``), m = 2 learners of 1 x
+    256 tokens a round from ``token_stream(seed=0)``, sgd (lr 0.05,
+    momentum 0, clip 1.0): ``train_periodic`` (period 4) and
+    ``train_dynamic`` (mini_batch 1, delta between the smallest and the
+    largest distance ``train_periodic`` recorded), T = 8 each, each run
+    twice from seed 0 and held bitwise to itself.  Then the smoke runs on
+    the card against the CPU, the Sec. 4 controller, a checkpoint round
+    trip and the compile counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data.streams import token_stream
+    from repro_torch.launch import train
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.telemetry import time_fn
+
+    t_phase = time.perf_counter()
+    cfg = get(LM_ARCH).with_(use_flash=False)
+    dev = device_mod.resolve()
+    opt_cfg = OptimizerConfig(kind="sgd", lr=TRAIN_LR, momentum=0.0,
+                              grad_clip=1.0)
+    batches = []
+    for toks, labels in token_stream(TRAIN_T, TRAIN_M * TRAIN_BATCH,
+                                     TRAIN_SEQ, cfg.vocab, seed=0):
+        shape = (TRAIN_M, TRAIN_BATCH, TRAIN_SEQ)
+        batches.append({
+            "tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                      device=dev).reshape(shape),
+            "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                      device=dev).reshape(shape)})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def checked(name, pcfg):
+        """A run, then its repeat from seed 0, held to it bitwise
+        (deterministic algorithms on); the repeat is dropped."""
+        from repro_torch.tree import leaves
+        first = _train_run(cfg, pcfg, opt_cfg, batches, dev)
+        again = _train_run(cfg, pcfg, opt_cfg, batches, dev)
+        for key in ("losses", "flags", "dists"):
+            assert again[key] == first[key], f"{name}: {key} differs"
+        a, b = again.pop("state"), first.pop("state")
+        assert float(a.pstate.last_divergence) == \
+            float(b.pstate.last_divergence), name
+        for x, y in zip(leaves(a.params), leaves(b.params)):
+            assert torch.equal(x, y), f"{name}: a repeat differs"
+        return first
+
+    periodic = ProtocolConfig(kind="periodic", period=TRAIN_PERIOD)
+    runs = {"train_periodic": checked("train_periodic", periodic)}
+    rec = runs["train_periodic"]
+    assert sum(rec["flags"]) == TRAIN_T // TRAIN_PERIOD
+    # the dynamic threshold: between the first round's distance and the
+    # largest before the first periodic sync (the two runs agree until a
+    # first sync), so the dynamic run has quiet rounds and sync rounds
+    lo = max(rec["dists"][0])
+    hi = max(max(d) for d in rec["dists"][:TRAIN_PERIOD])
+    every = [x for d in rec["dists"] for x in d]
+    delta = float(np.sqrt(lo * hi))
+    assert min(every) < delta < max(every) and lo < delta < hi, (lo, hi)
+    dynamic = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=1)
+    runs["train_dynamic"] = checked("train_dynamic", dynamic)
+    assert 0 < sum(runs["train_dynamic"]["flags"]) < TRAIN_T, \
+        runs["train_dynamic"]["flags"]
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"the trainer launched {launches}"
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert peak < total, (peak, total)
+
+    # the rounds without the checks: CUDA events around each step, from
+    # seed 0, first with deterministic algorithms on (as the checked
+    # runs), then off as a user runs them and as lm_serve is timed (the
+    # mode fills every torch.empty, each round's new parameter stack
+    # too); with the mode off one more round by the probe's time_fn and
+    # one profiled
+    def timed_rounds():
+        state = train.init_train_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, TRAIN_M,
+            opt_cfg, device=dev)
+        step = train.make_train_step(cfg, dynamic, opt_cfg)
+        events = []
+        for batch in batches[:TRAIN_TIMED_T]:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, _ = step(state, batch)
+            e1.record()
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        assert int(state.pstate.syncs) == \
+            sum(runs["train_dynamic"]["flags"][:TRAIN_TIMED_T])
+        return [a.elapsed_time(b) for a, b in events], state, step
+
+    det_round_ms = timed_rounds()[0]
+    torch.use_deterministic_algorithms(False)
+    try:
+        retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        round_ms, state, step = timed_rounds()
+        retries1 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        timed = time_fn(step, state, batches[0], warmup=1, iters=2)
+        retries2 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0, c0 = time.perf_counter(), time.process_time()
+            step(state, batches[0])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+            prof_cpu = time.process_time() - c0
+    finally:
+        torch.use_deterministic_algorithms(True)
+    by_kernel = _device_seconds(prof)
+    device_s = sum(by_kernel.values())
+    activities = sum(1 for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA)
+    del state, step
+    torch.cuda.empty_cache()
+    tokens = TRAIN_M * TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(round_ms[1:])
+    median_ms = steady[len(steady) // 2]
+    det = sorted(det_round_ms[1:])
+    det_median_ms = det[len(det) // 2]
+    for name, r in runs.items():
+        emit({"phase": "train", "run": name, "arch": LM_ARCH,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "dtype": cfg.dtype, "use_flash": cfg.use_flash,
+              "params": r["n_params"], "m": TRAIN_M,
+              "tokens_per_round": tokens, "T": TRAIN_T,
+              "optimizer": dataclasses.asdict(opt_cfg),
+              "protocol": dataclasses.asdict(
+                  periodic if name == "train_periodic" else dynamic),
+              "losses": r["losses"], "sync_rounds": [
+                  t + 1 for t, f in enumerate(r["flags"]) if f],
+              "dists": r["dists"], "bytes_per_sync": r["charge"],
+              "checked_round_ms": r["checked_round_ms"],
+              "repeat_bitwise": True})
+    smoke = _smoke_on_card_and_cpu(dev)
+    adaptive = _adaptive_on_card_and_cpu(dev)
+    ckpt = _checkpoint_round_trip(dev)
+    compiles = _compile_counts(dev)
+    emit({"phase": "train_checks", "dynamic_delta": delta,
+          "periodic_dist_range": [min(every), max(every)],
+          # train_dynamic's rounds without the checks, deterministic
+          # algorithms off
+          "round_ms": round_ms, "median_round_ms": median_ms,
+          "tokens_per_s": tokens / (median_ms / 1e3),
+          # the same rounds with the mode on
+          "deterministic_round_ms": det_round_ms,
+          "deterministic_median_round_ms": det_median_ms,
+          "deterministic_tokens_per_s": tokens / (det_median_ms / 1e3),
+          "trainer_kernel_launches": launches,
+          "max_memory_allocated": peak, "device_memory": total,
+          "time_fn_round_ms": timed.us_per_call / 1e3,
+          "time_fn_compiles": timed.compiles,
+          "time_fn_warmup_compiles": timed.warmup_compiles,
+          "time_fn_tokens_per_s": tokens / (timed.us_per_call / 1e6),
+          # the caching allocator's cudaFree-and-retry events
+          "alloc_retries_timed_rounds": retries1 - retries0,
+          "alloc_retries_time_fn": retries2 - retries1,
+          "profiled_round_wall_s": prof_wall, "profiled_device_s": device_s,
+          "device_busy_share": device_s / prof_wall,
+          # the profiled round's process CPU seconds and device activities
+          # (kernels, copies, fills)
+          "profiled_round_cpu_s": prof_cpu,
+          "profiled_device_activities": activities,
+          "top_kernels_s": dict(by_kernel.most_common(6)),
+          "smoke_card_vs_cpu": smoke, "adaptive_card_vs_cpu": adaptive,
+          "checkpoint": ckpt, "compile_counts": compiles,
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi() -> str:
@@ -2928,6 +3400,8 @@ def main() -> int:
     results["gram"]["errs"]["main"] = run_gram_path(ops, ref, totals)
     torch.cuda.empty_cache()
     run_lm_serve(ops, totals)
+    torch.cuda.empty_cache()
+    run_train_phase(ops)
 
     meta = {
         "sv_predict": ("src/repro_torch/kernels/csrc/sv_predict.cu",

@@ -7,8 +7,9 @@ NamedTuples of tensors on ``device``: floats as float32, ids and
 counters as int32, exactly as the reference stores them.
 
 ``lm_params`` carries an LM parameter tree across (each leaf keeps its
-float32 or bfloat16 type); ``to_numpy`` reads the port's structures
-back, bfloat16 widened to float32 (exact).
+float32 or bfloat16 type), ``protocol_state`` a protocol's carry and
+``train_state`` the LM trainer's whole state; ``to_numpy`` reads the
+port's structures back, bfloat16 widened to float32 (exact).
 """
 from __future__ import annotations
 
@@ -19,8 +20,11 @@ import torch
 
 from . import device as device_mod
 from .core.learners import KernelLearnerState, LinearLearnerState
+from .core.protocol import ProtocolState
 from .core.rff import RFFLearnerState, RFFSpec
 from .core.rkhs import SVModel
+from .launch.train import TrainState
+from .tree import tree_map
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -81,24 +85,74 @@ def _tree(t, fn):
     return fn(t)
 
 
-def lm_params(params: Any, cfg, device=None) -> dict:
+def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
     """The port's LM parameters from the reference's tree
     (``repro.models.build(cfg).init``): ``embed``, ``final_norm``,
-    ``lm_head`` when untied, and ``params["stages"][0]["b0"]``'s leading
-    axis of n_layers unstacked into ``layers``, one dict per layer.
-    ``device=None`` is the CUDA card."""
+    ``lm_head`` when untied, and ``params["stages"][0]["b0"]``'s axis of
+    n_layers unstacked into ``layers``, one dict per layer.  With
+    ``stacked`` every leaf carries a leading learner axis first (the
+    trainer's layout).  ``device=None`` is the CUDA card."""
     dev = device_mod.resolve(device)
     if tuple(cfg.stages) != ((("attn",), cfg.n_layers),) \
             or len(params["stages"]) != 1:
         raise NotImplementedError(
             f"only a uniform stack of attention blocks is ported, not "
             f"{cfg.stages}")
-    stacked = _tree(params["stages"][0]["b0"], np.asarray)
+    layer_axis = 1 if stacked else 0
+    blocks = _tree(params["stages"][0]["b0"], np.asarray)
     out = {k: _tree(params[k], lambda x: _leaf(x, dev))
            for k in ("embed", "final_norm", "lm_head") if k in params}
-    out["layers"] = [_tree(stacked, lambda x, i=i: _leaf(x[i], dev))
-                     for i in range(cfg.n_layers)]
+    out["layers"] = [
+        _tree(blocks, lambda x, i=i: _leaf(np.take(x, i, axis=layer_axis), dev))
+        for i in range(cfg.n_layers)]
     return out
+
+
+def _array(x, device) -> torch.Tensor:
+    """One array in its own type: a float as float32 or bfloat16 (see
+    ``_leaf``), an integer as int32, a bool as bool."""
+    kind = str(np.asarray(x).dtype)
+    if kind in _FLOAT_TYPES:
+        return _leaf(x, device)
+    if kind == "bool":
+        return torch.as_tensor(np.array(x, dtype=bool), device=device)
+    return _i32(x, device)
+
+
+def protocol_state(pstate: Any, device=None, reference=None):
+    """The port's ``ProtocolState`` from the reference's: the counters in
+    the reference's types (int32 step and syncs, float32 bytes,
+    divergence and scale) and the reference model through
+    ``reference(tree, device)`` (default: leaf by leaf, each in its own
+    type)."""
+    dev = device_mod.resolve(device)
+    ref = (reference(pstate.reference, dev) if reference
+           else tree_map(lambda x: _array(x, dev), pstate.reference))
+    return ProtocolState(reference=ref, step=_i32(pstate.step, dev),
+                         syncs=_i32(pstate.syncs, dev),
+                         bytes_sent=_f32(pstate.bytes_sent, dev),
+                         last_divergence=_f32(pstate.last_divergence, dev),
+                         delta_scale=_f32(pstate.delta_scale, dev))
+
+
+def train_state(state: Any, cfg, device=None):
+    """The port's ``launch.train.TrainState`` from the reference's:
+    stacked parameters (``lm_params(stacked=True)``), the optimizer's
+    state (``()``, a parameter-shaped tree, or adamw's ``{"m", "v"}``),
+    the protocol state with its stacked reference, and the step."""
+    dev = device_mod.resolve(device)
+
+    def lm(tree, d=dev):
+        return lm_params(tree, cfg, d, stacked=True)
+
+    opt = state.opt
+    if isinstance(opt, dict) and set(opt) == {"m", "v"}:
+        opt = {k: lm(v) for k, v in opt.items()}
+    elif opt != ():
+        opt = lm(opt)
+    return TrainState(params=lm(state.params), opt=opt,
+                      pstate=protocol_state(state.pstate, dev, lm),
+                      step=_i32(state.step, dev))
 
 
 def to_numpy(tree: Any):

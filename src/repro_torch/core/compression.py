@@ -129,3 +129,9 @@ def compress(spec: KernelSpec, f: SVModel, tau: int,
     if method == "project":
         return project(spec, f, tau, backend=backend)
     raise ValueError(f"unknown compression method {method!r}")
+
+
+def truncation_error_bound(lam: float, tau: int) -> float:
+    """The [12] bound epsilon in O((1/lam) (1-lam)^tau) for SGD with
+    learning rate lam and budget tau."""
+    return (1.0 / lam) * (1.0 - lam) ** tau

@@ -76,6 +76,7 @@ import torch
 
 from .. import device as device_mod
 from ..launch import mesh as mesh_mod
+from ..launch.mesh import learner_axes_of  # noqa: F401  (the reference's engine name)
 from . import substrate as substrate_mod
 from .learners import LearnerConfig
 from .protocol import PROTOCOL_KIND_CODES, ProtocolConfig

@@ -91,3 +91,26 @@ def init_state(spec: RFFSpec, *, lead: Tuple[int, ...] = (),
         w=torch.zeros(lead + (spec.num_features,), dtype=torch.float32,
                       device=device),
         b=torch.zeros(lead, dtype=torch.float32, device=device))
+
+
+def make_update(spec: RFFSpec, W: torch.Tensor, bias: torch.Tensor, *,
+                eta: float = 0.5, lam: float = 0.01, loss: str = "hinge"):
+    """SGD in the RFF primal space for one learner:
+    ``update(state, (x, y)) -> (state, loss)``, an exactly
+    loss-proportional convex update on a fixed-size model."""
+
+    def update(state: RFFLearnerState, example):
+        x, y = example
+        z = featurize(spec, W, bias, x[None])[0]
+        yhat = torch.sum(state.w * z) + state.b
+        if loss == "hinge":
+            ell = torch.clamp(1.0 - y * yhat, min=0.0)
+            g = torch.where(ell > 0, -y, torch.zeros_like(y))
+        else:
+            r = yhat - y
+            ell, g = 0.5 * r * r, r
+        w = (1.0 - eta * lam) * state.w - eta * g * z
+        b = state.b - eta * g
+        return RFFLearnerState(w=w, b=b), ell
+
+    return update

@@ -83,6 +83,16 @@ def gram(spec: KernelSpec, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return K.clamp_(min=0.0).mul_(-spec.gamma).exp_()
 
 
+def kernel_diag(spec: KernelSpec, X: torch.Tensor) -> torch.Tensor:
+    """k(x, x) for each row, without the Gram's diagonal."""
+    X = X.float()
+    if spec.kind == "linear":
+        return torch.sum(X * X, dim=-1)
+    if spec.kind == "poly":
+        return int_pow(torch.sum(X * X, dim=-1) + spec.coef0, spec.degree)
+    return torch.ones(X.shape[0], dtype=torch.float32, device=X.device)
+
+
 # ---------------------------------------------------------------------------
 # Support-vector expansion with a fixed budget
 # ---------------------------------------------------------------------------
@@ -121,6 +131,11 @@ def empty_model(budget: int, dim: int, *, lead: Tuple[int, ...] = (),
 
 def active_mask(f: SVModel) -> torch.Tensor:
     return f.sv_id >= 0
+
+
+def num_active(f: SVModel) -> torch.Tensor:
+    """The number of occupied slots (int32, batched over lead axes)."""
+    return torch.sum(active_mask(f).to(torch.int32), dim=-1, dtype=torch.int32)
 
 
 def masked_alpha(f: SVModel) -> torch.Tensor:
@@ -172,6 +187,12 @@ def quadform_(K: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     """``quadform`` that overwrites K (``mul_``) instead of allocating
     a second (M, N) buffer — for the (m tau)^2 truncation Gram."""
     return torch.sum(a * torch.sum(K.mul_(b[..., None, :]), dim=-1), dim=-1)
+
+
+def norm_sq(spec: KernelSpec, f: SVModel) -> torch.Tensor:
+    """||f||_H^2 = alpha^T K(S, S) alpha."""
+    a = masked_alpha(f)
+    return quadform(gram(spec, f.sv, f.sv), a, a)
 
 
 def dist_sq(spec: KernelSpec, f: SVModel, g: SVModel) -> torch.Tensor:

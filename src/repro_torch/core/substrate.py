@@ -87,6 +87,7 @@ from . import accounting, compression, learners, rff, rkhs
 from .learners import KernelLearnerState, LearnerConfig, LinearLearnerState
 from .rff import RFFLearnerState, RFFSpec
 from .rkhs import SVModel
+from ..tree import tree_map
 
 _BACKENDS = compression.BACKENDS
 
@@ -119,13 +120,6 @@ def _gather(models, lids: torch.Tensor):
 def _stack_one(model):
     """One model as a stack of one."""
     return type(model)(*(v[None] for v in model))
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the tensors of (nested) NamedTuple trees."""
-    if torch.is_tensor(trees[0]):
-        return fn(*trees)
-    return type(trees[0])(*(tree_map(fn, *leaves) for leaves in zip(*trees)))
 
 
 def shard_rows(tree, devices: Sequence[torch.device]) -> list:

@@ -11,6 +11,7 @@ because it imports nothing of the JAX package.
 - ``separable_stream``: linearly separable, for quiescence.
 - ``drifting_stream``: a rotating boundary (concept drift).
 - ``stock_stream``: AR(1) market with a non-linear target.
+- ``token_stream``: Zipfian token batches for LM protocol training.
 
 All return (X, Y) shaped (T, m, d) / (T, m) as float32 numpy arrays;
 the engine moves them to the device.
@@ -82,3 +83,19 @@ def stock_stream(T: int, m: int, d: int = 10, seed: int = 0):
         )
         prev = feats
     return X, Y
+
+
+def token_stream(T: int, batch: int, seq_len: int, vocab: int, seed: int = 0):
+    """Integer token batches for LM-scale protocol training (synthetic
+    Zipfian unigram text with local repetition structure): T pairs of
+    (tokens, labels), each (batch, seq_len) int32."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    for _ in range(T):
+        toks = rng.choice(vocab, size=(batch, seq_len + 1), p=p).astype(np.int32)
+        # inject copy structure so there is something to learn
+        half = seq_len // 2
+        toks[:, half + 1 : 2 * half + 1] = toks[:, 1 : half + 1]
+        yield toks[:, :-1], toks[:, 1:]

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -72,6 +73,37 @@ SIGNATURES = {
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
+
+#: Listeners told of every piece of compiled work that was not cached:
+#: ``listener(what, seconds)``.  Each active
+#: ``telemetry.probe.CompileCounter`` is one.
+COMPILE_LISTENERS: list = []
+
+
+def note_compile(what: str, seconds: float = 0.0) -> None:
+    """Report compiled work that missed its cache (an nvcc build, a
+    library load, a new launch geometry)."""
+    for listener in COMPILE_LISTENERS:
+        listener(what, seconds)
+
+
+def compiled_cache(fn):
+    """``functools.lru_cache`` for a launch geometry that reports each
+    miss through ``note_compile``."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def lookup(*args):
+        misses = cached.cache_info().misses
+        t0 = time.perf_counter()
+        out = cached(*args)
+        if cached.cache_info().misses != misses:
+            note_compile(fn.__name__, time.perf_counter() - t0)
+        return out
+
+    lookup.cache_info = cached.cache_info
+    lookup.cache_clear = cached.cache_clear
+    return lookup
 
 
 def _nvcc() -> str:
@@ -134,8 +166,9 @@ def build(force: bool = False) -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, lib)
-    BUILD_INFO.update(path=str(lib), cached=False,
-                      seconds=time.perf_counter() - t0, log=log)
+    seconds = time.perf_counter() - t0
+    BUILD_INFO.update(path=str(lib), cached=False, seconds=seconds, log=log)
+    note_compile("nvcc", seconds)
     return lib
 
 
@@ -143,12 +176,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIB = lib
+        note_compile("load", time.perf_counter() - t0)
     return _LIB
 
 

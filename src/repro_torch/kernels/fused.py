@@ -29,7 +29,6 @@ refuse what does not fit a block.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -60,7 +59,7 @@ def _split(n: int, per_block: int) -> Geometry:
     return Geometry(cluster, -(-n // cluster))
 
 
-@functools.lru_cache(maxsize=None)
+@_build.compiled_cache
 def sv_predict_geometry(N: int, d: int) -> Geometry:
     """The cluster split of a budget of N slots of d features: C =
     min(8, ceil(N / 128)) blocks, chunk = ceil(N / C)."""
@@ -69,7 +68,7 @@ def sv_predict_geometry(N: int, d: int) -> Geometry:
     return _split(N, SV_SLOTS)
 
 
-@functools.lru_cache(maxsize=None)
+@_build.compiled_cache
 def primal_step_geometry(D: int, featurize: bool) -> Geometry:
     """The split of a primal learner's D features.  RFF: C = min(8,
     ceil(D / 256)) blocks, chunk = ceil(D / C).  Linear: one warp a

@@ -14,7 +14,6 @@ wrapper raises.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -41,7 +40,7 @@ class RffGeometry(NamedTuple):
         return self.col_tiles, min(self.row_tiles, MAX_GRID_Y)
 
 
-@functools.lru_cache(maxsize=None)
+@_build.compiled_cache
 def rff_geometry(M: int, D: int) -> RffGeometry:
     """The least rows a thread that still gives about ``FILL_BLOCKS``
     blocks (at most 8): at D = 2048 (64 column tiles) serving's buckets

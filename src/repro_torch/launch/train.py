@@ -1,0 +1,168 @@
+"""Protocol training step and runnable trainer (port of
+``repro/launch/train.py``).
+
+The paper's technique at LM scale: every data-parallel group is a
+learner with its own model replica (a stacked leading axis m).  Each
+step every learner takes a local optimizer step on its own batch, then
+the synchronization operator runs: the dynamic one checks the local
+conditions ||theta_i - r||^2 <= Delta and averages the parameters only
+on a violation.
+
+The port keeps one process and one card: learner i's loss and
+gradients are taken on its own slice, one learner at a time, so only
+one learner's autograd graph and gradients are alive at once.  The
+step writes each learner's new parameters into a fresh stack and then
+calls ``core.protocol.apply_protocol``.  No step writes in place: the
+caller's ``TrainState`` stays as it was.
+
+Run:  python -m repro_torch.launch.train --arch qwen2_5_3b         (the card)
+      python -m repro_torch.launch.train --arch qwen2_5_3b --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, NamedTuple, Tuple, Union
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+from ..core import protocol
+from ..core.protocol import ProtocolConfig, ProtocolState
+from ..models import build
+from ..models.config import ModelConfig
+from ..optim import OptimizerConfig, make as make_optimizer
+from ..tree import leaves, tree_map, unflatten
+
+PyTree = Any
+
+
+class TrainState(NamedTuple):
+    params: PyTree          # stacked (m, ...)
+    opt: PyTree             # stacked optimizer state
+    pstate: ProtocolState   # stacked reference model + counters
+    step: torch.Tensor      # int32
+
+
+def _stack(tree: PyTree, m: int) -> PyTree:
+    return tree_map(lambda x: x[None].expand((m,) + tuple(x.shape)).clone(),
+                    tree)
+
+
+def init_train_state(seed_or_generator: Union[int, torch.Generator],
+                     cfg: ModelConfig, m: int, opt_cfg: OptimizerConfig,
+                     device=None) -> TrainState:
+    """m learners at one random model (drawn on ``device``; None is the
+    CUDA card), the reference stacked beside them."""
+    dev = device_mod.resolve(device)
+    params0 = build(cfg).init(seed_or_generator, device=dev)
+    opt = make_optimizer(opt_cfg)
+    return TrainState(
+        params=_stack(params0, m),
+        opt=_stack(opt.init(params0), m),
+        pstate=protocol.init_state(params0, m),
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
+                    opt_cfg: OptimizerConfig):
+    """``train_step(state, batch) -> (state, mean loss)``; ``batch``
+    holds ``tokens`` and ``labels`` of shape (m, B, S)."""
+    api = build(cfg)
+    opt = make_optimizer(opt_cfg)
+
+    def local_update(params, opt_state, step, batch):
+        params = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss = api.loss(params, batch)
+        flat = leaves(params)
+        grads = unflatten(params, torch.autograd.grad(loss, flat))
+        params = tree_map(lambda x: x.detach(), params)
+        new_params, new_opt = opt.update(grads, opt_state, params, step)
+        return new_params, new_opt, loss.detach()
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        m = leaves(state.params)[0].shape[0]
+        new_params = tree_map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            state.params)
+        new_opt = tree_map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            state.opt)
+        losses = []
+        for i in range(m):
+            p_i, o_i, loss = local_update(
+                tree_map(lambda x: x[i], state.params),
+                tree_map(lambda x: x[i], state.opt), state.step,
+                {k: v[i] for k, v in batch.items()})
+            tree_map(lambda dst, src: dst[i].copy_(src), new_params, p_i)
+            tree_map(lambda dst, src: dst[i].copy_(src), new_opt, o_i)
+            losses.append(loss)
+            del p_i, o_i
+        synced, new_pstate = protocol.apply_protocol(pcfg, new_params,
+                                                     state.pstate)
+        return (TrainState(params=synced, opt=new_opt, pstate=new_pstate,
+                           step=state.step + 1),
+                torch.mean(torch.stack(losses)))
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Runnable trainer
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_5_3b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--learners", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=2, help="per-learner batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--protocol", default="dynamic",
+                    choices=["none", "continuous", "periodic", "dynamic"])
+    ap.add_argument("--delta", type=float, default=1e-4)
+    ap.add_argument("--period", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--device", default=None,
+                    help="cpu, or the CUDA card (the default)")
+    args = ap.parse_args(argv)
+
+    from ..configs import get
+
+    cfg = get(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    m = args.learners
+    pcfg = ProtocolConfig(kind=args.protocol, delta=args.delta,
+                          period=args.period)
+    opt_cfg = OptimizerConfig(kind="sgd", lr=args.lr, momentum=0.0)
+    dev = device_mod.resolve(args.device)
+
+    state = init_train_state(0, cfg, m, opt_cfg, device=dev)
+    step_fn = make_train_step(cfg, pcfg, opt_cfg)
+
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    for t in range(args.steps):
+        toks = rng.integers(0, cfg.vocab, (m, args.batch, args.seq + 1))
+        batch = {
+            "tokens": torch.as_tensor(toks[..., :-1], dtype=torch.int64,
+                                      device=dev),
+            "labels": torch.as_tensor(toks[..., 1:], dtype=torch.int64,
+                                      device=dev),
+        }
+        state, loss = step_fn(state, batch)
+        print(f"step {t:4d} loss={float(loss):8.4f} "
+              f"syncs={int(state.pstate.syncs):3d} "
+              f"divergence={float(state.pstate.last_divergence):10.3e} "
+              f"bytes={int(state.pstate.bytes_sent):d}")
+    print(f"done in {time.time() - t0:.1f}s; "
+          f"{int(state.pstate.syncs)}/{args.steps} rounds synchronized")
+
+
+if __name__ == "__main__":
+    main()

@@ -93,8 +93,28 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
     return {"table": (_randn(gen, vocab, d) * 0.02).to(dtype)}
 
 
+class _Embedding(torch.autograd.Function):
+    """A row lookup whose backward sums each row's gradients by a
+    one-hot product (a GEMM), not a scatter: deterministic on the card
+    with deterministic algorithms on, whatever the token counts."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = table.shape[0]
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        rows = torch.arange(ctx.vocab, device=flat.device)
+        onehot = (rows[:, None] == flat[None, :]).to(g.dtype)
+        return onehot @ g.reshape(-1, g.shape[-1]), None
+
+
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["table"])
+    return _Embedding.apply(p["table"], tokens)
 
 
 # ---------------------------------------------------------------------------

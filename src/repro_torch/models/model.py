@@ -3,16 +3,17 @@
 
     api = build(cfg)
     params = api.init(seed_or_generator)        # device=None: the CUDA card
+    loss   = api.loss(params, batch)            # train
     logits, aux = api.forward(params, batch)
     caches = api.init_caches(B, length)
     logits, caches = api.prefill(params, batch, caches)
     logits, caches = api.decode(params, caches, token, pos)
 
 ``batch`` is a dict with ``tokens`` (B, S) (and ``embeds`` for a
-prefix).  ``init`` and ``init_caches`` resolve ``device=None`` to the
-CUDA card and raise where there is none; a generator passed to
-``init`` must live on that device.  The encoder-decoder family and the
-loss (training) raise ``NotImplementedError`` (ROADMAP.md).
+prefix, ``labels`` (B, S) for ``loss``).  ``init`` and ``init_caches``
+resolve ``device=None`` to the CUDA card and raise where there is none;
+a generator passed to ``init`` must live on that device.  The
+encoder-decoder family raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -9,14 +9,14 @@ n_layers); here that scan is a Python loop over ``layers``, and
 ``convert.lm_params`` unstacks the reference's tree.  Caches are a list
 with one ``KVCache`` per layer, written in place.
 
-Three entry points, as the reference's:
+Four entry points, as the reference's:
   forward_lm   -- full-sequence logits (+ an aux loss of 0)
   prefill      -- full-sequence forward that also fills the caches
   decode_step  -- one token against the caches
+  lm_loss      -- the next-token cross-entropy (training)
 
-The ``moe``, ``ssm`` and ``rglru`` block kinds, MLA, M-RoPE, the
-sliding-window ring cache and ``lm_loss`` (the training slice) raise
-``NotImplementedError`` (ROADMAP.md).
+The ``moe``, ``ssm`` and ``rglru`` block kinds, MLA, M-RoPE and the
+sliding-window ring cache raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -197,8 +197,30 @@ def forward_lm(params: Params, cfg: ModelConfig,
     return _logits(params, cfg, x), aux
 
 
-def lm_loss(params: Params, cfg: ModelConfig, tokens, labels, embeds=None):
-    raise attn._not_ported("lm_loss (the LM training slice)")
+def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over the true vocab, mean per token, plus the aux
+    loss (0 for the dense family).  The padded vocab columns are masked
+    by an additive bias fused into the float32 upcast; with ``embeds``
+    only the trailing ``labels.shape[1]`` positions count.
+
+    The gold logit is picked by a one-hot select and a sum (exact: one
+    term is not zero), not by a gather, so its backward is an
+    elementwise select and never a scatter: deterministic on the card.
+    """
+    logits, aux = forward_lm(params, cfg, tokens, embeds)
+    if embeds is not None:
+        logits = logits[:, -labels.shape[1]:, :]
+    cols = torch.arange(cfg.padded_vocab, device=logits.device)
+    pad_bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
+                           device=logits.device)
+    pad_bias.masked_fill_(cols >= cfg.vocab, -1e30)
+    logits = logits.float() + pad_bias
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.where(cols == labels[..., None], logits,
+                       torch.zeros((), device=logits.device)).sum(dim=-1)
+    return torch.mean(logz - gold) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -443,3 +443,72 @@ def test_allreduce_int32_guard_refuses_the_same_shapes(kind):
     assert teng.allreduce_cost(ts, lo) == int(jeng._allreduce_cost(js, lo))
     with pytest.raises(ValueError):
         teng.allreduce_cost(ts, hi)
+
+
+# ---------------------------------------------------------------------------
+# token_stream and the public names completed with the protocol slice
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,vocab,seq", [(0, 512, 16), (3, 151936, 33)])
+def test_token_stream_byte_identical(seed, vocab, seq):
+    from repro.data import token_stream as jtok
+    from repro_torch.data import token_stream as ttok
+
+    got = list(ttok(4, 2, seq, vocab, seed=seed))
+    want = list(jtok(4, 2, seq, vocab, seed=seed))
+    assert len(got) == len(want) == 4
+    for (gt, gl), (wt, wl) in zip(got, want):
+        for a, b in ((gt, wt), (gl, wl)):
+            assert a.dtype == b.dtype == np.int32 and a.shape == b.shape
+            assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_diag_norm_sq_num_active_match(kind, backend_parity):
+    js, ts = _spec_pair(kind)
+    sv, alpha, ids = _stacked(11, 3, 9, 4)
+    X = np.random.default_rng(12).normal(size=(7, 4)).astype(np.float32)
+    backend_parity(_np(trkhs.kernel_diag(ts, torch.as_tensor(X))),
+                   jrkhs.kernel_diag(js, jnp.asarray(X)), "kernel_diag")
+    jm, tm = _jmodel(sv, alpha, ids), _tmodel(sv, alpha, ids)
+    backend_parity(_np(trkhs.norm_sq(ts, tm)),
+                   jax.vmap(lambda f: jrkhs.norm_sq(js, f))(jm), "norm_sq")
+    got = trkhs.num_active(tm)
+    assert got.dtype == torch.int32
+    assert np.array_equal(_np(got), np.asarray(jax.vmap(jrkhs.num_active)(jm)))
+    one = jrkhs.SVModel(*(x[0] for x in jm))
+    assert int(trkhs.num_active(type(tm)(*(x[0] for x in tm)))) == \
+        int(jrkhs.num_active(one))
+
+
+@pytest.mark.parametrize("loss", ["hinge", "squared"])
+def test_rff_make_update_matches(loss, backend_parity):
+    from repro.core import rff as jrff
+    from repro_torch.core import rff as trff
+
+    jspec = jrff.RFFSpec(dim=6, num_features=64, gamma=0.3, seed=2)
+    W, b = jrff.rff_params(jspec)
+    tspec = convert.rff_spec(jspec, W, b)
+    tW, tb = trff.rff_params(tspec)
+    jup = jax.jit(jrff.make_update(jspec, W, b, eta=0.3, lam=0.02, loss=loss))
+    tup = trff.make_update(tspec, tW, tb, eta=0.3, lam=0.02, loss=loss)
+    js, ts = jrff.init_state(jspec), trff.init_state(tspec)
+    X, Y = jstreams.susy_stream(12, 1, d=6, seed=4)
+    for t in range(12):
+        js, jl = jup(js, (jnp.asarray(X[t, 0]), jnp.asarray(Y[t, 0])))
+        ts, tl = tup(ts, (torch.as_tensor(X[t, 0]), torch.as_tensor(Y[t, 0])))
+        backend_parity(_np(tl), jl, f"loss {t}")
+        backend_parity(_np(ts.w), js.w, f"w {t}")
+        backend_parity(_np(ts.b), js.b, f"b {t}")
+
+
+def test_truncation_error_bound_and_learner_axes_of():
+    for lam, tau in ((0.1, 10), (0.01, 1000), (0.5, 1)):
+        assert tcomp.truncation_error_bound(lam, tau) == \
+            jcomp.truncation_error_bound(lam, tau)
+    from repro_torch.launch import mesh as tmesh
+
+    assert teng.learner_axes_of is tmesh.learner_axes_of
+    mesh = tmesh.make_learner_mesh(devices=["cpu"] * 2)
+    assert teng.learner_axes_of(mesh) == ("learners",)

@@ -997,3 +997,96 @@ def test_mesh_across_cards_is_the_single_device_run(family, cuda):
     got, want = eng.serve(), base.serve()
     _assert_same_sim(got.sim, want.sim, f"{family} serving across cards")
     assert [r.yhat for r in reqs[id(eng)]] == [r.yhat for r in reqs[id(base)]]
+
+
+# ---------------------------------------------------------------------------
+# The protocol operators and the LM trainer on the card
+# ---------------------------------------------------------------------------
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.to(dev) if torch.is_tensor(x) else x, tree)
+
+
+@pytest.mark.cuda
+def test_train_rounds_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.launch import train
+    from repro_torch.optim import OptimizerConfig
+
+    cfg = get_config("qwen2_5_3b").smoke()
+    opt_cfg = OptimizerConfig(kind="sgd", lr=0.05, momentum=0.9, grad_clip=1.0)
+    pcfg = ProtocolConfig(kind="dynamic", delta=0.05, per_group=True)
+    step = train.make_train_step(cfg, pcfg, opt_cfg)
+    cpu = train.init_train_state(0, cfg, 2, opt_cfg, device="cpu")
+    card = _to(cpu, cuda)
+    rng = np.random.default_rng(0)
+    for t in range(4):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 2, 17)))
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        cpu, lc = step(cpu, batch)
+        card, lg = step(card, _to(batch, cuda))
+        assert int(card.pstate.syncs) == int(cpu.pstate.syncs), t
+        assert card.pstate.bytes_sent.cpu().numpy().tobytes() == \
+            cpu.pstate.bytes_sent.numpy().tobytes(), t
+        _close(lg, lc, f"loss {t}")
+    assert 0 < int(cpu.pstate.syncs) < 4
+
+
+@pytest.mark.cuda
+def test_adaptive_controller_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.core import protocol
+    from repro_torch.data import drifting_stream
+
+    def update(model, ex):
+        x, y = ex
+        ell = torch.clamp(1.0 - y * (model["w"] @ x), min=0.0)
+        g = torch.where(ell > 0, -y, torch.zeros_like(y))
+        return {"w": model["w"] - 0.2 * g * x}, ell
+
+    cfg = ProtocolConfig(kind="dynamic", delta=1e-3, delta_schedule="adaptive",
+                         target_sync_rate=0.10, adapt_up=2.0)
+    step = protocol.make_protocol_step(cfg, update)
+    X, Y = drifting_stream(200, 4, d=8, seed=0, drift_every=50)
+    out = []
+    for dev in ("cpu", cuda):
+        st = {"w": torch.zeros((4, 8), device=dev)}
+        state = protocol.init_state({"w": torch.zeros(8, device=dev)}, 4)
+        for t in range(200):
+            st, state, _ = step(st, state, (torch.as_tensor(X[t], device=dev),
+                                            torch.as_tensor(Y[t], device=dev)))
+        out.append((int(state.syncs),
+                    state.bytes_sent.cpu().numpy().tobytes()))
+    assert out[0] == out[1] and out[0][0] > 0
+
+
+@pytest.mark.cuda
+def test_value_equal_engine_run_compiles_nothing(cuda):
+    from repro_torch.telemetry import CompileCounter
+
+    cfg = LearnerConfig(algo="kernel_sgd", dim=6, budget=32,
+                        kernel=KernelSpec(kind="gaussian", gamma=0.2))
+    pcfg = ProtocolConfig(kind="dynamic", delta=0.5)
+    X, Y = susy_stream(20, 4, d=6, seed=0)
+    engine.run(cfg, pcfg, X, Y, backend="kernels")
+    with CompileCounter() as c:
+        engine.run(cfg, ProtocolConfig(kind="dynamic", delta=0.5), X, Y,
+                   backend="kernels")
+    assert c.compiles == 0, c.events
+
+
+@pytest.mark.cuda
+def test_train_state_checkpoint_on_the_card_restores_bitwise(cuda, tmp_path):
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_config("qwen2_5_3b").smoke().with_(dtype="bfloat16")
+    opt_cfg = OptimizerConfig(kind="adamw", lr=1e-3)
+    state = train.init_train_state(0, cfg, 2, opt_cfg, device=cuda)
+    path = checkpoint.save_step(str(tmp_path), 0, state)
+    got = checkpoint.restore(path, train.init_train_state(1, cfg, 2, opt_cfg,
+                                                          device=cuda))
+    for g, w in zip(leaves(got), leaves(state)):
+        assert g.device.type == "cuda" and torch.equal(g, w)

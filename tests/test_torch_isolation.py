@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
 - an AST scan of every module under ``src/repro_torch/`` and of
-  ``chip_smoke.py`` finds no import of ``jax`` or ``repro``;
+  ``chip_smoke.py`` finds no import of ``jax``, ``repro``, ``msgpack``
+  or ``ml_dtypes`` (the last two are not on the machine with the card);
 - a fresh interpreter that imports the port (and builds nothing) has
-  neither in ``sys.modules``;
+  none of them in ``sys.modules``;
 - the entry points (``engine.run``, ``engine.sweep``,
   ``run_population``, ``run_async_simulation``, the serial oracle,
   ``launch.mesh.make_learner_mesh``, the LM's) resolve ``device=None``
@@ -30,7 +31,9 @@ from repro_torch.runtime import AsyncProtocolConfig, run_async_simulation
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# msgpack and ml_dtypes: the machine with the card has neither (the
+# checkpoint format is written by the port's own codec)
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _port_files():
@@ -79,9 +82,12 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.telemetry import monitor\n"
         "import repro_torch.launch\n"
         "from repro_torch.launch import mesh, serve\n"
-        "from repro_torch.core import simulation\n"
+        "from repro_torch.core import simulation, protocol\n"
+        "from repro_torch import checkpoint, optim, tree\n"
+        "from repro_torch.telemetry import probe\n"
+        "from repro_torch.launch import train\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "assert _build._LIB is None, 'importing built the kernels'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

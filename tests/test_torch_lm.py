@@ -39,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import build as tbuild
 from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttransformer
 from repro_torch.serving.lm import LMServingEngine as TEngine
 from repro_torch.serving.lm import Request as TRequest
 
@@ -308,5 +309,7 @@ def test_unported_families_raise():
             tbuild(tc.with_(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tget("qwen3_14b")
+    # the loss is ported (tests/test_torch_train.py); an unported family's
+    # loss still raises
     with pytest.raises(NotImplementedError):
-        tbuild(tc).loss(None, {"tokens": None, "labels": None})
+        ttransformer.lm_loss(None, tc.with_(window=8), None, None)

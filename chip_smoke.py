@@ -182,6 +182,34 @@ non-zero with no result line:
    ``telemetry.CompileCounter`` a second value-equal ``engine.run`` of
    ``sv_dynamic`` and a second ``engine.sweep`` of the RFF grid, each
    adding no compile.
+13. ``lm_ssm``: ``mamba2_130m`` at full width and depth (24 layers, d
+   768, bf16 with float32 ``A_log``, ``D`` and ``dt_bias``; 129,100,224
+   parameters, 258,203,904 B; weights drawn on the card from seed 0
+   after phase 12 freed its own).  The trainer with m = 4 learners of 2
+   x 512 tokens a round (four chunks of 128) from ``token_stream(seed=0)``,
+   sgd (lr 0.05, momentum 0, clip 1.0): ``train_periodic`` (period 4)
+   and ``train_dynamic`` (delta as phase 12 picks it), T = 8 each,
+   under phase 12's checks (``_ProtocolWatch``, the host recount of
+   the bytes: each sync 2,065,631,232 B, the reference's own formula, a
+   bitwise repeat, no kernel of the port) and every gradient finite,
+   ``A_log``'s, ``D``'s and ``dt_bias``'s included (``_GradWatch``);
+   then ``SSM_TIMED_T`` rounds timed with deterministic algorithms on
+   and off and one profiled.  ``LMServingEngine`` on ``LM_PROMPTS`` at
+   batch 4, 32 new tokens (the 1500-token batch pads to 1536 inside the
+   scan): a repeat bitwise, no kernel launched, tokens per wall second,
+   prefill and decode seconds and device activities a decode step.
+   The same weights in float32: prefill of 1500 tokens, then 31
+   teacher-forced decode steps, each within 2e-2 of the largest logit
+   of one full forward (tests/test_decode.py:37).
+14. ``lm_dense``: ``granite_8b`` (36 layers, 32/8 heads) and then
+   ``qwen3_14b`` (40 layers, 40/8 heads, ``qk_norm``), hd 128, bf16,
+   ``use_flash=True``, full width and depth from seed 0, one at a time:
+   ``LMServingEngine`` at batch 4 on prompts of 1024, 700, 333 and 64
+   tokens, 8 new tokens, one ``flash`` launch a layer, every flash
+   layer within 2 bf16 ulps (plus 2e-5) of ``_sdpa`` on its own q, k,
+   v, a repeat bitwise, then served with deterministic algorithms off
+   (tokens per wall second, peak memory); ``flash`` timed at each
+   prefill's shape (the ``flash`` kernels entry's ``lm_dense_shapes``).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary (with each kernel's ``slice_shapes`` and
@@ -935,6 +963,32 @@ def one_pass_p(q, k, v, causal=True):
     return torch.einsum("bqk,bkd->bqd", w, v.float())
 
 
+def flash_timing(flashmod, ref, BH, S, hd, batch, dev, gen):
+    """``flash`` on causal bf16 (BH, S, hd) inputs drawn from ``gen``:
+    its time, the plain version's, ``scaled_dot_product_attention``'s on
+    the same tensors as (batch, BH / batch, S, hd), the bound, and the
+    products and bytes the bound counts."""
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn(BH, S, hd, generator=gen).to(dev).to(bf16)
+               for _ in range(3))
+    ms = time_ms(lambda: flashmod.flash_attention(q, k, v), iters=20)
+    plain = time_ms(lambda: ref.flash_ref(q, k, v), iters=5)
+    q4, k4, v4 = (t.view(batch, BH // batch, S, hd) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters=20)
+    pairs = S * (S + 1) // 2                 # causal: the visible pairs
+    gemm = BH * pairs * hd * 2               # q.k, and again p.v
+    nbytes = 2 * 4 * BH * S * hd             # q, k, v read, O written
+    # q.k: products of bf16 values are exact in fp32, so bf16 tensor
+    # cores accumulating in fp32 compute it at their peak; p.v with p
+    # in fp32 precision takes three bf16 passes (p split into bf16 high,
+    # middle and low parts; v is exact).  The softmax (scale, max,
+    # subtract, exp, sum: 5 per pair) runs beside them on the CUDA cores.
+    bound = max(bound_ms(nbytes, gemm * (1 + 3), BF16_TC_FLOPS_PER_S),
+                bound_ms(nbytes, BH * pairs * 5))
+    return ms, plain, library, bound, gemm, nbytes
+
+
 def check_flash(flashmod, ref, dev, gen):
     """``flash`` against ``ref.flash_ref`` (float32 plain): float32 within
     2e-5 (a TF32 plain version must miss that, and so must the plain
@@ -1002,23 +1056,8 @@ def check_flash(flashmod, ref, dev, gen):
             errs[label] = float((o.float() - want).abs().max())
         assert torch.equal(o, flashmod.flash_attention(q, k, v, **kw)), \
             f"{label}: a repeat differs"
-    q, k, v = (torch.randn(BH, S, hd, generator=gen).to(dev).to(bf16)
-               for _ in range(3))
-    ms = time_ms(lambda: flashmod.flash_attention(q, k, v), iters=20)
-    plain = time_ms(lambda: ref.flash_ref(q, k, v), iters=5)
-    q4, k4, v4 = (t.view(LM_BATCH, BH // LM_BATCH, S, hd) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters=20)
-    pairs = S * (S + 1) // 2                 # causal: the visible pairs
-    gemm = BH * pairs * hd * 2               # q.k, and again p.v
-    nbytes = 2 * 4 * BH * S * hd             # q, k, v read, O written
-    # q.k: products of bf16 values are exact in fp32, so bf16 tensor
-    # cores accumulating in fp32 compute it at their peak; p.v with p
-    # in fp32 precision takes three bf16 passes (p split into bf16 high,
-    # middle and low parts; v is exact).  The softmax (scale, max,
-    # subtract, exp, sum: 5 per pair) runs beside them on the CUDA cores.
-    bound = max(bound_ms(nbytes, gemm * (1 + 3), BF16_TC_FLOPS_PER_S),
-                bound_ms(nbytes, BH * pairs * 5))
+    ms, plain, library, bound, gemm, nbytes = flash_timing(
+        flashmod, ref, BH, S, hd, LM_BATCH, dev, gen)
     emit({"phase": "kernel_tolerance", "name": "flash",
           "rtol": KERNEL_TOL, "atol": KERNEL_TOL, "bf16_ulps": BF16_ULPS,
           "max_abs_err_fp32": max(v for k_, v in errs.items()
@@ -2923,19 +2962,73 @@ class _ProtocolWatch:
         return out, new
 
 
-def _train_run(cfg, pcfg, opt_cfg, batches, dev) -> dict:
-    """One trainer run from seed 0: per round the loss, the flag, the
-    distances and the device ms (CUDA events), every sync checked by
-    ``_ProtocolWatch``; the counters held to a host recount."""
+class _GradWatch:
+    """While active, every ``torch.autograd.grad`` call (the trainer's
+    one a learner a round) must return finite gradients only; records
+    the calls and the largest |gradient| of the float32 leaves (a bf16
+    Mamba-2 tree's ``A_log``, ``D`` and ``dt_bias``)."""
+
+    def __enter__(self):
+        self.orig = torch.autograd.grad
+        torch.autograd.grad = self._checked
+        self.calls, self.f32_leaves, self.f32_max = 0, 0, 0.0
+        return self
+
+    def __exit__(self, *exc):
+        torch.autograd.grad = self.orig
+
+    def _checked(self, outputs, inputs, *args, **kw):
+        grads = self.orig(outputs, inputs, *args, **kw)
+        finite = torch.stack([torch.isfinite(g).all() for g in grads])
+        assert bool(finite.all()), \
+            f"non-finite gradients at leaves {(~finite).nonzero().tolist()}"
+        f32 = [g for g in grads if g.dtype == torch.float32]
+        self.calls += 1
+        self.f32_leaves = len(f32)
+        if f32:
+            self.f32_max = max(self.f32_max, float(torch.stack(
+                [g.abs().max() for g in f32]).max()))
+        return grads
+
+
+def _timed_train_rounds(cfg, pcfg, opt_cfg, batches, m, dev):
+    """``batches`` rounds of the trainer from seed 0, CUDA events around
+    each step and the host clock around all (synchronized); returns
+    (round ms, wall s, state, step)."""
+    from repro_torch.launch import train
+
+    state = train.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, m, opt_cfg,
+        device=dev)
+    step = train.make_train_step(cfg, pcfg, opt_cfg)
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = step(state, batch)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [a.elapsed_time(b) for a, b in events], wall, state, step
+
+
+def _train_run(cfg, pcfg, opt_cfg, batches, dev, m=TRAIN_M) -> dict:
+    """One trainer run of m learners from seed 0: per round the loss, the
+    flag, the distances and the device ms (CUDA events), every sync
+    checked by ``_ProtocolWatch``; the counters held to a host recount."""
     from repro_torch.core import protocol
     from repro_torch.launch import train
     from repro_torch.tree import leaves, tree_map
 
     state = train.init_train_state(
-        torch.Generator(device=dev).manual_seed(0), cfg, TRAIN_M, opt_cfg,
+        torch.Generator(device=dev).manual_seed(0), cfg, m, opt_cfg,
         device=dev)
     one = tree_map(lambda x: x[0], state.params)
-    charge = np.float32(2 * TRAIN_M * protocol.model_bytes(one))
+    charge = np.float32(2 * m * protocol.model_bytes(one))
     step = train.make_train_step(cfg, pcfg, opt_cfg)
     losses, events = [], []
     with _ProtocolWatch() as watch:
@@ -2961,6 +3054,28 @@ def _train_run(cfg, pcfg, opt_cfg, batches, dev) -> dict:
             "dists": watch.dists, "charge": float(charge),
             "n_params": protocol.model_num_params(one),
             "checked_round_ms": [a.elapsed_time(b) for a, b in events]}
+
+
+def _checked_train(name, cfg, pcfg, opt_cfg, batches, dev, m=TRAIN_M):
+    """A run, then its repeat from seed 0, held to it bitwise
+    (deterministic algorithms on); the repeat is dropped.  The first
+    run's gradients are held finite by ``_GradWatch``, whose counts it
+    returns beside its record."""
+    from repro_torch.tree import leaves
+    with _GradWatch() as grads:
+        first = _train_run(cfg, pcfg, opt_cfg, batches, dev, m=m)
+    again = _train_run(cfg, pcfg, opt_cfg, batches, dev, m=m)
+    for key in ("losses", "flags", "dists"):
+        assert again[key] == first[key], f"{name}: {key} differs"
+    a, b = again.pop("state"), first.pop("state")
+    assert float(a.pstate.last_divergence) == \
+        float(b.pstate.last_divergence), name
+    for x, y in zip(leaves(a.params), leaves(b.params)):
+        assert torch.equal(x, y), f"{name}: a repeat differs"
+    assert grads.calls == m * len(batches), (name, grads.calls)
+    first.update(grad_f32_leaves=grads.f32_leaves,
+                 grad_max_abs_f32_leaves=grads.f32_max)
+    return first
 
 
 def _smoke_on_card_and_cpu(dev) -> list:
@@ -3133,7 +3248,6 @@ def run_train_phase(ops) -> None:
     from repro_torch.configs import get
     from repro_torch.core.protocol import ProtocolConfig
     from repro_torch.data.streams import token_stream
-    from repro_torch.launch import train
     from repro_torch.optim import OptimizerConfig
     from repro_torch.telemetry import time_fn
 
@@ -3157,19 +3271,7 @@ def run_train_phase(ops) -> None:
     ops.reset_launch_counts()
 
     def checked(name, pcfg):
-        """A run, then its repeat from seed 0, held to it bitwise
-        (deterministic algorithms on); the repeat is dropped."""
-        from repro_torch.tree import leaves
-        first = _train_run(cfg, pcfg, opt_cfg, batches, dev)
-        again = _train_run(cfg, pcfg, opt_cfg, batches, dev)
-        for key in ("losses", "flags", "dists"):
-            assert again[key] == first[key], f"{name}: {key} differs"
-        a, b = again.pop("state"), first.pop("state")
-        assert float(a.pstate.last_divergence) == \
-            float(b.pstate.last_divergence), name
-        for x, y in zip(leaves(a.params), leaves(b.params)):
-            assert torch.equal(x, y), f"{name}: a repeat differs"
-        return first
+        return _checked_train(name, cfg, pcfg, opt_cfg, batches, dev)
 
     periodic = ProtocolConfig(kind="periodic", period=TRAIN_PERIOD)
     runs = {"train_periodic": checked("train_periodic", periodic)}
@@ -3201,22 +3303,11 @@ def run_train_phase(ops) -> None:
     # too); with the mode off one more round by the probe's time_fn and
     # one profiled
     def timed_rounds():
-        state = train.init_train_state(
-            torch.Generator(device=dev).manual_seed(0), cfg, TRAIN_M,
-            opt_cfg, device=dev)
-        step = train.make_train_step(cfg, dynamic, opt_cfg)
-        events = []
-        for batch in batches[:TRAIN_TIMED_T]:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            state, _ = step(state, batch)
-            e1.record()
-            events.append((e0, e1))
-        torch.cuda.synchronize()
+        round_ms, _, state, step = _timed_train_rounds(
+            cfg, dynamic, opt_cfg, batches[:TRAIN_TIMED_T], TRAIN_M, dev)
         assert int(state.pstate.syncs) == \
             sum(runs["train_dynamic"]["flags"][:TRAIN_TIMED_T])
-        return [a.elapsed_time(b) for a, b in events], state, step
+        return round_ms, state, step
 
     det_round_ms = timed_rounds()[0]
     torch.use_deterministic_algorithms(False)
@@ -3292,6 +3383,382 @@ def run_train_phase(ops) -> None:
           "smoke_card_vs_cpu": smoke, "adaptive_card_vs_cpu": adaptive,
           "checkpoint": ckpt, "compile_counts": compiles,
           "phase_wall_s": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the Mamba-2 SSM family (trainer and serving)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2_130m"
+SSM_M = 4                 # the reference CLI's learners
+SSM_BATCH = 2             # sequences a learner a round
+SSM_SEQ = 512             # tokens a sequence: four chunks of 128
+SSM_T = 8                 # rounds a checked run
+SSM_TIMED_T = 4           # rounds timed without the checks
+SSM_PARAMS = 129_100_224  # jax.eval_shape of the reference's init
+SSM_MODEL_BYTES = 258_203_904
+SSM_F32_PROMPT = 1500     # the float32 prefill -> decode check
+SSM_F32_STEPS = 31
+
+
+def _ssm_train(ops, cfg, dev) -> dict:
+    """The trainer at ``mamba2_130m``'s full width: the checked periodic
+    and dynamic runs (each repeated bitwise from seed 0), then the timed
+    rounds.  Returns the phase line's ``train`` object."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data.streams import token_stream
+    from repro_torch.optim import OptimizerConfig
+
+    opt_cfg = OptimizerConfig(kind="sgd", lr=TRAIN_LR, momentum=0.0,
+                              grad_clip=1.0)
+    shape = (SSM_M, SSM_BATCH, SSM_SEQ)
+    batches = [{"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                          device=dev).reshape(shape),
+                "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                          device=dev).reshape(shape)}
+               for toks, labels in token_stream(
+                   SSM_T, SSM_M * SSM_BATCH, SSM_SEQ, cfg.vocab, seed=0)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def checked(name, pcfg):
+        rec = _checked_train(name, cfg, pcfg, opt_cfg, batches, dev, m=SSM_M)
+        assert rec["grad_f32_leaves"] == 3 * cfg.n_layers, rec
+        assert rec["grad_max_abs_f32_leaves"] > 0.0, \
+            "no gradient reached A_log, D, dt_bias"
+        return rec
+
+    periodic = ProtocolConfig(kind="periodic", period=TRAIN_PERIOD)
+    runs = {"train_periodic": checked("ssm periodic", periodic)}
+    rec = runs["train_periodic"]
+    assert rec["n_params"] == SSM_PARAMS, rec["n_params"]
+    assert rec["charge"] == 2 * SSM_M * SSM_MODEL_BYTES, rec["charge"]
+    assert sum(rec["flags"]) == SSM_T // TRAIN_PERIOD
+    lo = max(rec["dists"][0])
+    hi = max(max(d) for d in rec["dists"][:TRAIN_PERIOD])
+    every = [x for d in rec["dists"] for x in d]
+    delta = float(np.sqrt(lo * hi))
+    assert min(every) < delta < max(every) and lo < delta < hi, (lo, hi)
+    dynamic = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=1)
+    runs["train_dynamic"] = checked("ssm dynamic", dynamic)
+    assert 0 < sum(runs["train_dynamic"]["flags"]) < SSM_T, \
+        runs["train_dynamic"]["flags"]
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"the SSM trainer launched {launches}"
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    timed = batches[:SSM_TIMED_T]
+    det_ms, det_wall = _timed_train_rounds(cfg, dynamic, opt_cfg, timed,
+                                           SSM_M, dev)[:2]
+    torch.use_deterministic_algorithms(False)
+    try:
+        round_ms, wall, state, step = _timed_train_rounds(
+            cfg, dynamic, opt_cfg, timed, SSM_M, dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0, c0 = time.perf_counter(), time.process_time()
+            step(state, batches[0])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+            prof_cpu = time.process_time() - c0
+    finally:
+        torch.use_deterministic_algorithms(True)
+    del state, step
+    by_kernel = _device_seconds(prof)
+    device_s = sum(by_kernel.values())
+    activities = sum(1 for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA)
+    tokens = SSM_M * SSM_BATCH * SSM_SEQ
+
+    def median(xs):
+        xs = sorted(xs[1:])
+        return xs[len(xs) // 2]
+
+    return {
+        "m": SSM_M, "tokens_per_round": tokens, "T": SSM_T,
+        "optimizer": dataclasses.asdict(opt_cfg), "dynamic_delta": delta,
+        "runs": {name: {
+            "protocol": dataclasses.asdict(
+                periodic if name == "train_periodic" else dynamic),
+            "losses": r["losses"], "sync_rounds": [
+                t + 1 for t, f in enumerate(r["flags"]) if f],
+            "dists": r["dists"], "bytes_per_sync": r["charge"],
+            "grad_max_abs_f32_leaves": r["grad_max_abs_f32_leaves"],
+            "checked_round_ms": r["checked_round_ms"],
+            "repeat_bitwise": True} for name, r in runs.items()},
+        "params": SSM_PARAMS, "model_bytes": SSM_MODEL_BYTES,
+        "kernel_launches": launches, "max_memory_allocated": peak,
+        # train_dynamic's rounds without the checks, deterministic
+        # algorithms off, then on
+        "round_ms": round_ms, "median_round_ms": median(round_ms),
+        "tokens_per_s": tokens / (median(round_ms) / 1e3),
+        "timed_wall_s": wall,
+        "tokens_per_wall_s": tokens * len(timed) / wall,
+        "deterministic_round_ms": det_ms,
+        "deterministic_tokens_per_wall_s": tokens * len(timed) / det_wall,
+        "profiled_round_wall_s": prof_wall, "profiled_round_cpu_s": prof_cpu,
+        "profiled_device_s": device_s,
+        "device_busy_share": device_s / prof_wall,
+        "profiled_device_activities": activities,
+        "top_kernels_s": dict(by_kernel.most_common(6))}
+
+
+def _ssm_serve(ops, cfg, params, dev) -> dict:
+    """``LMServingEngine`` with the SSM: two batches of four of
+    ``LM_PROMPTS``, 32 new tokens; a repeat bitwise, no kernel launched;
+    then served with deterministic algorithms off (tokens per wall
+    second, prefill and decode seconds) and profiled (device activities
+    a decode step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.lm import LMServingEngine, Request
+
+    def engine():
+        return LMServingEngine(cfg, params, batch_size=LM_BATCH,
+                               max_len=LM_MAX_LEN)
+
+    def requests():
+        return _lm_requests(cfg.vocab, Request)
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = engine().run(requests())
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    outputs = {r.uid: r.output for r in done}
+    assert sorted(outputs) == list(range(len(LM_PROMPTS)))
+    for r in done:
+        assert len(r.output) == LM_NEW_TOKENS and r.latency_s > 0
+        assert all(0 <= t < cfg.vocab for t in r.output)
+    again = engine().run(requests())
+    assert {r.uid: r.output for r in again} == outputs, "a repeat differs"
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"SSM serving launched {launches}"
+
+    torch.use_deterministic_algorithms(False)
+    try:
+        eng = engine()
+        clock = _StepClock(eng)
+        t0 = time.perf_counter()
+        served = eng.run(requests())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine().run(requests())
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(True)
+    device_s = sum(_device_seconds(prof).values())
+    # each batch reads its tokens back LM_NEW_TOKENS times: after the
+    # prefill, then after each decode step.  Late in this process the
+    # profiler can lose a read back, which merges two steps, so the
+    # decode figures are medians over the steps below the prefills'
+    # count of largest ones
+    steps = _steps(prof)
+    batches = -(-len(LM_PROMPTS) // LM_BATCH)
+    dec = sorted(steps, key=lambda x: x["kernels"])[:-batches]
+    generated = sum(len(o) for o in outputs.values())
+    prefill_s, decode_s = clock.seconds("prefill"), clock.seconds("decode")
+
+    def median(key, scale=1):
+        vals = sorted(x[key] * scale for x in dec)
+        return vals[len(vals) // 2] if vals else None
+
+    return {"batch": LM_BATCH, "requests": len(done),
+            "prompt_lens": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
+            "kernel_launches": launches, "max_memory_allocated": peak,
+            "generated_tokens": generated,
+            "deterministic_wall_s": det_s,
+            "wall_s": secs, "tokens_per_wall_s": generated / secs,
+            "same_tokens": {r.uid: r.output for r in served} == outputs,
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_calls": len(clock.pairs["decode"]),
+            "decode_ms_per_step": decode_s * 1e3
+            / max(len(clock.pairs["decode"]), 1),
+            "profiled_wall_s": prof_s, "device_s": device_s,
+            "device_busy_share": device_s / prof_s,
+            "steps_traced": len(steps),
+            "steps_expected": batches * LM_NEW_TOKENS,
+            "decode_kernels_per_step_median": median("kernels"),
+            "decode_device_ms_per_step_median": median("device_s", 1e3),
+            "decode_span_ms_per_step_median": median("span_s", 1e3)}
+
+
+def _ssm_decode_f32(cfg, params, dev) -> dict:
+    """The same weights in float32: prefill of ``SSM_F32_PROMPT`` tokens
+    (padded to a multiple of the chunk inside), then ``SSM_F32_STEPS``
+    teacher-forced decode steps, each step's logits within ``LOGIT_TOL``
+    of the largest logit of one full forward at that position
+    (tests/test_decode.py:37)."""
+    from repro_torch.models import build
+    from repro_torch.tree import tree_map
+
+    cfg32 = cfg.with_(dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    api = build(cfg32)
+    n = SSM_F32_PROMPT + SSM_F32_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, n)), device=dev)
+    short, long_ = api.init_caches(LM_BATCH, 8), api.init_caches(LM_BATCH,
+                                                                 LM_MAX_LEN)
+    assert [tuple(c.h.shape) + tuple(c.conv_buf.shape) for c in short] == \
+        [tuple(c.h.shape) + tuple(c.conv_buf.shape) for c in long_]
+    with torch.no_grad():
+        full = api.forward(p32, {"tokens": tokens})[0][..., :cfg.vocab]
+        logits, caches = api.prefill(
+            p32, {"tokens": tokens[:, :SSM_F32_PROMPT]}, short)
+        worst = 0.0
+        for step in range(SSM_F32_STEPS + 1):
+            pos = SSM_F32_PROMPT - 1 + step
+            got = logits[:, -1, :cfg.vocab]
+            want = full[:, pos]
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= LOGIT_TOL, \
+                f"lm_ssm: float32 step {step} is {rel} of the largest logit"
+            worst = max(worst, rel)
+            if step < SSM_F32_STEPS:
+                logits, caches = api.decode(
+                    p32, caches, tokens[:, pos + 1:pos + 2], pos + 1)
+    del p32, full
+    return {"prompt": SSM_F32_PROMPT, "decode_steps": SSM_F32_STEPS,
+            "max_rel_logit_err": worst, "tol": LOGIT_TOL}
+
+
+def run_ssm_phase(ops) -> None:
+    """Phase 13 (``lm_ssm``): ``mamba2_130m`` at full width and depth (24
+    layers, d 768, bf16 with float32 ``A_log``, ``D`` and ``dt_bias``;
+    weights drawn on the card from seed 0): the protocol trainer
+    (``_ssm_train``), serving (``_ssm_serve``) and the float32 prefill
+    and decode against a full forward (``_ssm_decode_f32``)."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.models import build, count_params
+
+    t_phase = time.perf_counter()
+    cfg = get(SSM_ARCH)
+    dev = device_mod.resolve()
+    torch.cuda.empty_cache()
+    line = {"phase": "lm_ssm", "arch": SSM_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "train": _ssm_train(ops, cfg, dev)}
+    torch.cuda.empty_cache()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    assert count_params(params) == SSM_PARAMS
+    line["serve"] = _ssm_serve(ops, cfg, params, dev)
+    line["f32"] = _ssm_decode_f32(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(line)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the dense configs granite_8b and qwen3_14b, served with flash
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("granite_8b", "qwen3_14b")
+DENSE_PROMPTS = (1024, 700, 333, 64)
+DENSE_NEW_TOKENS = 8
+
+
+def run_dense_phase(ops, totals, flashmod, ref) -> dict:
+    """Phase 14 (``lm_dense``): each config at full width and depth (bf16,
+    ``use_flash=True``, weights drawn on the card from seed 0), one at a
+    time: ``LMServingEngine`` at batch 4 on ``DENSE_PROMPTS``,
+    ``DENSE_NEW_TOKENS`` new tokens, every flash layer held to the plain
+    attention on its own q, k, v (``_FlashAgainstPlain``), a repeat
+    bitwise, then a served run with deterministic algorithms off; and
+    ``flash`` timed at the prefill's shape.  Returns the kernels line's
+    ``lm_dense_shapes`` for ``flash``."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.models import build, count_params
+    from repro_torch.serving.lm import LMServingEngine, Request
+
+    dev = device_mod.resolve()
+    shapes = {}
+    for arch in DENSE_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get(arch).with_(use_flash=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        n_params = count_params(params)
+        max_len = max(DENSE_PROMPTS) + DENSE_NEW_TOKENS
+
+        def engine():
+            return LMServingEngine(cfg, params, batch_size=LM_BATCH,
+                                   max_len=max_len)
+
+        def requests():
+            rng = np.random.default_rng(0)
+            return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n),
+                            max_new_tokens=DENSE_NEW_TOKENS)
+                    for i, n in enumerate(DENSE_PROMPTS)]
+
+        ops.reset_launch_counts()
+        with _FlashAgainstPlain() as layers:
+            done = engine().run(requests())
+        counts = dict(ops.LAUNCH_COUNTS)
+        assert counts == {"flash": cfg.n_layers}, counts
+        assert layers.calls == cfg.n_layers, layers.calls
+        assert layers.seqs == {max(DENSE_PROMPTS)}, layers.seqs
+        totals["flash"] = totals.get("flash", 0) + counts["flash"]
+        outputs = {r.uid: r.output for r in done}
+        for r in done:
+            assert len(r.output) == DENSE_NEW_TOKENS
+            assert all(0 <= t < cfg.vocab for t in r.output)
+        again = engine().run(requests())
+        assert {r.uid: r.output for r in again} == outputs, \
+            f"{arch}: a repeat differs"
+        torch.use_deterministic_algorithms(False)
+        try:
+            t0 = time.perf_counter()
+            served = engine().run(requests())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(True)
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        torch.cuda.empty_cache()
+        BH = LM_BATCH * cfg.n_heads
+        ms, plain, library, (bms, by), gemm, _ = flash_timing(
+            flashmod, ref, BH, max(DENSE_PROMPTS), cfg.hd, LM_BATCH, dev,
+            torch.Generator().manual_seed(0))
+        shapes[arch] = {
+            "shape": [BH, max(DENSE_PROMPTS), cfg.hd], "launches": counts[
+                "flash"], "ms": ms["ms"], "device_ms": ms["device_ms"],
+            "plain_ms": plain["ms"], "plain_device_ms": plain["device_ms"],
+            "library_ms": library["ms"],
+            "library_device_ms": library["device_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "attention_tflops": gemm * 2 / ms["device_ms"] / 1e9}
+        generated = sum(len(o) for o in outputs.values())
+        emit({"phase": "lm_dense", "arch": arch, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+              "hd": cfg.hd, "qk_norm": cfg.qk_norm, "dtype": cfg.dtype,
+              "params": n_params, "batch": LM_BATCH,
+              "prompt_lens": list(DENSE_PROMPTS),
+              "new_tokens": DENSE_NEW_TOKENS, "kernel_launches": counts,
+              "max_memory_allocated": peak, "generated_tokens": generated,
+              "wall_s": secs, "tokens_per_wall_s": generated / secs,
+              "same_tokens": {r.uid: r.output for r in served} == outputs,
+              "flash_layers_checked": layers.calls,
+              "flash_layer_max_abs_err": layers.max_err,
+              "flash_layer_max_ulps": layers.max_ulps,
+              "flash_layer_outputs_differing": layers.differ,
+              "flash_layer_outputs": layers.of,
+              "flash": shapes[arch],
+              "arch_wall_s": time.perf_counter() - t_arch})
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -3402,6 +3869,9 @@ def main() -> int:
     run_lm_serve(ops, totals)
     torch.cuda.empty_cache()
     run_train_phase(ops)
+    torch.cuda.empty_cache()
+    run_ssm_phase(ops)
+    dense_shapes = run_dense_phase(ops, totals, flash, ref)
 
     meta = {
         "sv_predict": ("src/repro_torch/kernels/csrc/sv_predict.cu",
@@ -3453,6 +3923,9 @@ def main() -> int:
                else {}),
             # a mesh shard's shapes (phase 3's learners over 4 shards)
             **({"mesh_shapes": mesh_shapes[name]} if name in mesh_shapes
+               else {}),
+            # flash at the dense configs' prefill shapes (phase 14)
+            **({"lm_dense_shapes": dense_shapes} if name == "flash"
                else {}),
             **(grouped if name == "quadform" else {})})
     print(smi, flush=True)

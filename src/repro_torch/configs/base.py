@@ -7,7 +7,8 @@ exact sizes and registers it.  ``get(name)`` returns the full config;
 Only the architectures in ``PORTED`` have a module here.  ``get`` of
 another architecture of the reference raises ``NotImplementedError``
 (ROADMAP.md, "Modules still to port"): it never hands out a config the
-port's model cannot run.
+port's model cannot run.  ``all_arch_ids`` is the reference's full id
+list, ported or not.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ ARCH_IDS: List[str] = [
 ]
 
 #: The architectures the port runs.
-PORTED = ("qwen2_5_3b",)
+PORTED = ("qwen2_5_3b", "mamba2_130m", "granite_8b", "qwen3_14b",
+          "paper_kernel")
 
 # CLI aliases (dashes as given in the reference)
 ALIASES = {
@@ -71,3 +73,8 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return get(name).smoke()
+
+
+def all_arch_ids(include_paper: bool = False) -> List[str]:
+    ids = [a for a in ARCH_IDS if a != "paper_kernel"]
+    return ids + (["paper_kernel"] if include_paper else [])

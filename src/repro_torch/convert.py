@@ -7,7 +7,9 @@ NamedTuples of tensors on ``device``: floats as float32, ids and
 counters as int32, exactly as the reference stores them.
 
 ``lm_params`` carries an LM parameter tree across (each leaf keeps its
-float32 or bfloat16 type), ``protocol_state`` a protocol's carry and
+float32 or bfloat16 type, so a bf16 Mamba-2 tree keeps its float32
+``A_log``, ``D`` and ``dt_bias``), ``lm_caches`` the LM's prefill and
+decode caches, ``protocol_state`` a protocol's carry and
 ``train_state`` the LM trainer's whole state; ``to_numpy`` reads the
 port's structures back, bfloat16 widened to float32 (exact).
 """
@@ -24,6 +26,9 @@ from .core.protocol import ProtocolState
 from .core.rff import RFFLearnerState, RFFSpec
 from .core.rkhs import SVModel
 from .launch.train import TrainState
+from .models.attention import KVCache
+from .models.ssm import SSMState
+from .models.transformer import PORTED_KINDS
 from .tree import tree_map
 
 
@@ -85,6 +90,16 @@ def _tree(t, fn):
     return fn(t)
 
 
+def _check_uniform(cfg, stages) -> None:
+    """The port's layers are one stack of one ported block kind."""
+    if len(cfg.stages) != 1 or len(cfg.stages[0][0]) != 1 \
+            or cfg.stages[0][0][0] not in PORTED_KINDS \
+            or cfg.stages[0][1] != cfg.n_layers or len(stages) != 1:
+        raise NotImplementedError(
+            f"only a uniform stack of {sorted(PORTED_KINDS)} blocks is "
+            f"ported, not {cfg.stages}")
+
+
 def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
     """The port's LM parameters from the reference's tree
     (``repro.models.build(cfg).init``): ``embed``, ``final_norm``,
@@ -93,11 +108,7 @@ def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
     ``stacked`` every leaf carries a leading learner axis first (the
     trainer's layout).  ``device=None`` is the CUDA card."""
     dev = device_mod.resolve(device)
-    if tuple(cfg.stages) != ((("attn",), cfg.n_layers),) \
-            or len(params["stages"]) != 1:
-        raise NotImplementedError(
-            f"only a uniform stack of attention blocks is ported, not "
-            f"{cfg.stages}")
+    _check_uniform(cfg, params["stages"])
     layer_axis = 1 if stacked else 0
     blocks = _tree(params["stages"][0]["b0"], np.asarray)
     out = {k: _tree(params[k], lambda x: _leaf(x, dev))
@@ -106,6 +117,22 @@ def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
         _tree(blocks, lambda x, i=i: _leaf(np.take(x, i, axis=layer_axis), dev))
         for i in range(cfg.n_layers)]
     return out
+
+
+def lm_caches(caches: Any, cfg, device=None) -> list:
+    """The port's per-layer caches from the reference's stacked
+    per-stage ones (``init_caches`` / ``prefill`` / ``decode_step``):
+    ``caches[0]["b0"]``'s axis of n_layers unstacked into one
+    ``KVCache`` or ``SSMState`` a layer, each leaf in its own type
+    (``slot_pos`` as int32), so a prefill or a decode can start from a
+    JAX state."""
+    dev = device_mod.resolve(device)
+    _check_uniform(cfg, caches)
+    stack = caches[0]["b0"]
+    kind = SSMState if hasattr(stack, "conv_buf") else KVCache
+    fields = [np.asarray(getattr(stack, f)) for f in kind._fields]
+    return [kind(*(_array(np.take(x, i, axis=0), dev) for x in fields))
+            for i in range(cfg.n_layers)]
 
 
 def _array(x, device) -> torch.Tensor:

@@ -15,8 +15,16 @@ step writes each learner's new parameters into a fresh stack and then
 calls ``core.protocol.apply_protocol``.  No step writes in place: the
 caller's ``TrainState`` stays as it was.
 
-Run:  python -m repro_torch.launch.train --arch qwen2_5_3b         (the card)
-      python -m repro_torch.launch.train --arch qwen2_5_3b --device cpu
+A parameter tree may mix dtypes (the bf16 Mamba-2 tree holds float32
+``A_log``, ``D`` and ``dt_bias``): the optimizer computes each update in
+float32 and casts it back to its leaf's dtype, the protocol widens each
+leaf to float32 for its distances and averages, and a sync is charged
+each leaf's own bytes.
+
+Run:  python -m repro_torch.launch.train --steps 20         (the card)
+      python -m repro_torch.launch.train --device cpu
+(``--arch`` defaults to mamba2_130m, as the reference's CLI; the smoke
+variant of the architecture, as there.)
 """
 from __future__ import annotations
 
@@ -116,7 +124,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2_5_3b")
+    ap.add_argument("--arch", default="mamba2_130m")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--learners", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2, help="per-learner batch")

@@ -9,13 +9,12 @@ Initializers take an explicit ``torch.Generator`` and draw on its
 device.  They follow the reference's scales, not its numbers: JAX's
 keys and PyTorch's generators give different draws from the same seed,
 so the tests carry the reference's parameters across
-(``convert.lm_params``).  ``apply_mrope`` and the causal conv1d family
-wait for the VLM, SSM and hybrid slices.
+(``convert.lm_params``).  ``apply_mrope`` waits for the VLM slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -161,3 +160,47 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu_glu") -> torch.Tensor:
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(dense(p["wi"], x), approximate="tanh")
     return dense(p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Conv1d (causal, depthwise): the Mamba-2 frontend
+# ---------------------------------------------------------------------------
+
+
+def conv1d_init(gen: torch.Generator, width: int, channels: int,
+                dtype) -> Params:
+    return {"w": (_randn(gen, width, channels) / math.sqrt(width)).to(dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+
+
+def causal_conv1d(p: Params, x: torch.Tensor,
+                  left_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, S, C) depthwise causal conv.  ``left_context``: (B,
+    width-1, C) preceding inputs (zeros if None), for exact chunked
+    prefill.  The ``width`` shifted products are summed in x's dtype in
+    the order i = 0 .. width-1 and the bias added last, each operation
+    rounded to that dtype: the reference's ``sum(...)`` bitwise in
+    bf16."""
+    width, S = p["w"].shape[0], x.shape[1]
+    if left_context is None:
+        pad = F.pad(x, (0, 0, width - 1, 0))
+    else:
+        pad = torch.cat([left_context.to(x.dtype), x], dim=1)
+    out = pad[:, 0:S, :] * p["w"][0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + S, :] * p["w"][i]
+    return out + p["b"]
+
+
+def conv1d_step(p: Params, buf: torch.Tensor,
+                x_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step.  buf: (B, width-1, C) past inputs; returns
+    (the new buffer, (B, C)).  The reference's einsum over the window:
+    the products summed in float32 in window order, rounded once to the
+    dtype, then the bias added (bitwise in bf16)."""
+    window = torch.cat([buf, x_t[:, None, :]], dim=1)       # (B, width, C)
+    w = p["w"].float()
+    acc = window[:, 0, :].float() * w[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + window[:, i, :].float() * w[i]
+    return window[:, 1:, :], acc.to(x_t.dtype) + p["b"]

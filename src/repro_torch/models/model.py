@@ -1,4 +1,4 @@
-"""Model API over the decoder-only family (port of
+"""Model API over the decoder-only families (port of
 ``repro/models/model.py``).
 
     api = build(cfg)
@@ -12,8 +12,10 @@
 ``batch`` is a dict with ``tokens`` (B, S) (and ``embeds`` for a
 prefix, ``labels`` (B, S) for ``loss``).  ``init`` and ``init_caches``
 resolve ``device=None`` to the CUDA card and raise where there is none;
-a generator passed to ``init`` must live on that device.  The
-encoder-decoder family raises ``NotImplementedError`` (ROADMAP.md).
+a generator passed to ``init`` must live on that device.  The dense
+(``attn``) and SSM (``ssm``) decoders run; ``init_caches`` gives one
+``KVCache`` or ``SSMState`` per layer.  The encoder-decoder family
+raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ dictionary per layer.  The reference stacks identical blocks and scans
 over them (``params["stages"][0]["b0"]`` with a leading axis of
 n_layers); here that scan is a Python loop over ``layers``, and
 ``convert.lm_params`` unstacks the reference's tree.  Caches are a list
-with one ``KVCache`` per layer, written in place.
+with one cache per layer: a ``KVCache`` for an attention block, written
+in place, or an ``ssm.SSMState`` for a Mamba-2 block, replaced by the
+new state at each call.
 
 Four entry points, as the reference's:
   forward_lm   -- full-sequence logits (+ an aux loss of 0)
@@ -15,16 +17,19 @@ Four entry points, as the reference's:
   decode_step  -- one token against the caches
   lm_loss      -- the next-token cross-entropy (training)
 
-The ``moe``, ``ssm`` and ``rglru`` block kinds, MLA, M-RoPE and the
-sliding-window ring cache raise ``NotImplementedError`` (ROADMAP.md).
+Two block kinds run: ``attn`` (the dense decoder) and ``ssm`` (Mamba-2,
+``models/ssm.py``; no positions, an aux loss of 0).  The ``moe`` and
+``rglru`` kinds, MLA, M-RoPE and the sliding-window ring cache raise
+``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import dense, dense_init, embed, embed_init, mlp, mlp_init, \
     norm_apply, norm_init
@@ -39,14 +44,18 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+#: the block kinds the port runs
+PORTED_KINDS = frozenset(("attn", "ssm"))
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's decoder does not run yet."""
     if cfg.is_encdec:
         raise attn._not_ported("the encoder-decoder family")
-    kinds = sorted(set(cfg.pattern) - {"attn"})
-    if kinds:
-        raise attn._not_ported(f"block kinds {kinds}")
-    if cfg.attn_kind != "gqa":
+    kinds = set(cfg.pattern)
+    if kinds - PORTED_KINDS:
+        raise attn._not_ported(f"block kinds {sorted(kinds - PORTED_KINDS)}")
+    if "attn" in kinds and cfg.attn_kind != "gqa":
         raise attn._not_ported(f"attention kind {cfg.attn_kind!r}")
     if cfg.mrope_sections:
         raise attn._not_ported("M-RoPE")
@@ -59,10 +68,17 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
-    if kind != "attn":
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
         raise attn._not_ported(f"block kind {kind!r}")
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    _check_kind(kind)
     dt, d = torch_dtype(cfg), cfg.d_model
+    if kind == "ssm":
+        return {"norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
+                "ssm": ssm_mod.ssm_init(gen, cfg, dt)}
     return {
         "norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
         "attn": attn.attn_init(gen, cfg, dt),
@@ -78,19 +94,21 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
 def block_forward(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                   positions: Optional[torch.Tensor]):
     """Returns (x, aux_loss)."""
-    if kind != "attn":
-        raise attn._not_ported(f"block kind {kind!r}")
+    _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(cfg.norm_kind, p["norm1"], x, eps)
+    if kind == "ssm":
+        return x + ssm_mod.ssm_forward(cfg, p["ssm"], h)[0], _zero_aux(x)
     x = x + attn.gqa_forward(cfg, p["attn"], h, positions, window=cfg.window)
     h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
     return x + mlp(p["mlp"], h, cfg.act), _zero_aux(x)
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, B: int, length: int,
-                     dtype, device=None) -> attn.KVCache:
-    if kind != "attn":
-        raise attn._not_ported(f"block kind {kind!r}")
+                     dtype, device=None):
+    _check_kind(kind)
+    if kind == "ssm":       # a fixed-size state, whatever the length
+        return ssm_mod.init_ssm_state(cfg, B, dtype, device)
     if cfg.window > 0:
         raise attn._not_ported("the sliding-window ring cache")
     return attn.init_kv_cache(cfg, B, length, dtype, device)
@@ -117,11 +135,13 @@ def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
                   positions: Optional[torch.Tensor]):
     """Full-sequence forward that also fills this block's cache.
     Returns (x, cache, aux)."""
-    if kind != "attn":
-        raise attn._not_ported(f"block kind {kind!r}")
+    _check_kind(kind)
     eps = cfg.norm_eps
     S = x.shape[1]
     h = norm_apply(cfg.norm_kind, p["norm1"], x, eps)
+    if kind == "ssm":
+        y, state = ssm_mod.ssm_forward(cfg, p["ssm"], h, cache)
+        return x + y, state, _zero_aux(x)
     a, kv = attn.gqa_forward(cfg, p["attn"], h, positions, window=cfg.window,
                              return_kv=True)
     cache = _fill_kv_cache(cfg, cache, kv, S)
@@ -131,10 +151,12 @@ def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
 
 
 def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
-    if kind != "attn":
-        raise attn._not_ported(f"block kind {kind!r}")
+    _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(cfg.norm_kind, p["norm1"], x_t, eps)
+    if kind == "ssm":
+        y, state = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+        return x_t + y, state
     a, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache,
                                window=cfg.window)
     x_t = x_t + a
@@ -201,7 +223,7 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor,
             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy over the true vocab, mean per token, plus the aux
-    loss (0 for the dense family).  The padded vocab columns are masked
+    loss (0 for the dense and SSM families).  The padded vocab columns are masked
     by an additive bias fused into the float32 upcast; with ``embeds``
     only the trailing ``labels.shape[1]`` positions count.
 
@@ -229,8 +251,9 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_caches(cfg: ModelConfig, B: int, length: int, dtype=None,
-                device=None) -> List[attn.KVCache]:
-    """One empty cache per layer."""
+                device=None) -> list:
+    """One empty cache per layer (an SSM layer's does not depend on
+    ``length``)."""
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
     return [block_cache_init(cfg, kind, B, length, dt, device)

@@ -140,3 +140,43 @@ def test_lm_params_round_trip(dtype):
         for got, want in zip(jax.tree.leaves(back[key]),
                              jax.tree.leaves(jp[key])):
             np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+
+def test_lm_params_and_caches_of_the_ssm_carry_across():
+    """A bf16 ``mamba2_130m`` smoke tree keeps its float32 ``A_log``,
+    ``D`` and ``dt_bias``; the reference's stacked ``SSMState`` and
+    ``KVCache`` caches come across one per layer, bitwise."""
+    from repro.configs import get as jget
+    from repro.models import build as jbuild
+
+    from repro_torch.configs import get as tget
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMState
+
+    jc = jget("mamba2_130m").smoke().with_(dtype="bfloat16")
+    tc = tget("mamba2_130m").smoke().with_(dtype="bfloat16")
+    api = jbuild(jc)
+    jp = api.init(jax.random.PRNGKey(3))
+    tp = convert.lm_params(jp, tc, device="cpu")
+    ssm = tp["layers"][1]["ssm"]
+    assert ssm["in_proj"]["w"].dtype == torch.bfloat16
+    assert {ssm[k].dtype for k in ("A_log", "D", "dt_bias")} == {torch.float32}
+    np.testing.assert_array_equal(
+        ssm["A_log"].numpy(), np.asarray(jp["stages"][0]["b0"]["ssm"]["A_log"][1]))
+    tok = jnp.asarray(np.random.default_rng(0).integers(0, jc.vocab, (2, 7)),
+                      jnp.int32)
+    _, jcache = api.prefill(jp, {"tokens": tok}, api.init_caches(2, 8))
+    got = convert.lm_caches(jcache, tc, device="cpu")
+    assert len(got) == tc.n_layers and all(type(c) is SSMState for c in got)
+    for i, c in enumerate(got):
+        want = jax.tree.map(lambda a: a[i], jcache[0]["b0"])
+        assert c.h.dtype == torch.float32
+        assert c.conv_buf.dtype == torch.bfloat16
+        np.testing.assert_array_equal(c.h.numpy(), np.asarray(want.h))
+        np.testing.assert_array_equal(c.conv_buf.float().numpy(),
+                                      np.asarray(want.conv_buf, np.float32))
+    jc = jget("qwen2_5_3b").smoke()
+    kv = convert.lm_caches(jbuild(jc).init_caches(2, 8),
+                           tget("qwen2_5_3b").smoke(), device="cpu")
+    assert type(kv[0]) is KVCache and kv[0].slot_pos.dtype == torch.int32
+    assert kv[0].k.shape == (2, 8, jc.n_kv_heads, jc.hd)

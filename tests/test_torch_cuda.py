@@ -1090,3 +1090,106 @@ def test_train_state_checkpoint_on_the_card_restores_bitwise(cuda, tmp_path):
                                                           device=cuda))
     for g, w in zip(leaves(got), leaves(state)):
         assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 SSM family and the dense configs' head layouts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_ssm_smoke_on_the_card_equals_the_cpu(cuda):
+    """``mamba2_130m``'s smoke model (float32) from one set of weights:
+    forward, prefill (the padding path) and 3 decode steps on the card
+    against the CPU, no kernel launched, the state's dtypes kept."""
+    cfg = get_config("mamba2_130m").smoke()
+    api = build(cfg)
+    cpu = api.init(0, device="cpu")
+    card = _to(cpu, cuda)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 37)))
+    ops.reset_launch_counts()
+    _close(api.forward(card, {"tokens": tokens.to(cuda)})[0],
+           api.forward(cpu, {"tokens": tokens})[0], "forward")
+    got = api.prefill(card, {"tokens": tokens.to(cuda)},
+                      api.init_caches(2, 8, device=cuda))
+    want = api.prefill(cpu, {"tokens": tokens},
+                       api.init_caches(2, 8, device="cpu"))
+    for step in range(3):
+        _close(got[0], want[0], f"logits {step}")
+        nxt = torch.argmax(want[0][:, -1, :cfg.vocab], dim=-1)[:, None]
+        got = api.decode(card, got[1], nxt.to(cuda), 37 + step)
+        want = api.decode(cpu, want[1], nxt, 37 + step)
+    assert got[1][0].h.dtype == torch.float32
+    assert got[1][0].h.device.type == cuda.type
+    assert not ops.LAUNCH_COUNTS
+
+
+@pytest.mark.cuda
+def test_ssm_train_rounds_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.launch import train
+    from repro_torch.optim import OptimizerConfig
+
+    cfg = get_config("mamba2_130m").smoke()
+    opt_cfg = OptimizerConfig(kind="sgd", lr=0.05, grad_clip=1.0)
+    step = train.make_train_step(
+        cfg, ProtocolConfig(kind="periodic", period=2), opt_cfg)
+    cpu = train.init_train_state(0, cfg, 2, opt_cfg, device="cpu")
+    card = _to(cpu, cuda)
+    rng = np.random.default_rng(0)
+    for t in range(4):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 2, 33)))
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        cpu, lc = step(cpu, batch)
+        card, lg = step(card, _to(batch, cuda))
+        assert int(card.pstate.syncs) == int(cpu.pstate.syncs) == (t + 1) // 2
+        assert card.pstate.bytes_sent.cpu().numpy().tobytes() == \
+            cpu.pstate.bytes_sent.numpy().tobytes(), t
+        _close(lg, lc, f"loss {t}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_8b", "qwen3_14b"])
+def test_flash_at_the_dense_configs_head_layouts(arch, cuda):
+    """The flash path at the config's own heads (32/8, 40/8 with
+    ``qk_norm``; hd 128) in bf16, two layers, d cut to 1024: each layer's
+    output within 2 bf16 ulps (plus 2e-5) of the plain attention on the
+    same q, k, v, and the prefill within 2e-2 of the largest logit."""
+    from repro_torch.models import attention
+
+    full = get_config(arch)
+    cfg = full.smoke().with_(dtype="bfloat16", d_model=1024, d_ff=2048,
+                             n_heads=full.n_heads, n_kv_heads=full.n_kv_heads,
+                             head_dim=full.head_dim, qk_norm=full.qk_norm)
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 200),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    seen = []
+    orig = attention._flash_sdpa
+
+    def checked(c, q, k, v, causal):
+        o = orig(c, q, k, v, causal)
+        S = q.shape[1]
+        want = attention._sdpa(q, k, v, attention.causal_mask(S, S, 0, 0,
+                                                              q.device),
+                               attention._inv_sqrt(c.hd)).float()
+        e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+        assert bool(((o.float() - want).abs()
+                     <= 2 * torch.exp2(e - 7) + 2e-5).all())
+        seen.append(q.shape)
+        return o
+
+    def caches():
+        return build(cfg).init_caches(2, 208, device=cuda)
+
+    attention._flash_sdpa = checked
+    try:
+        got = build(cfg.with_(use_flash=True)).prefill(
+            params, {"tokens": tokens}, caches())[0]
+    finally:
+        attention._flash_sdpa = orig
+    want = build(cfg).prefill(params, {"tokens": tokens}, caches())[0]
+    assert len(seen) == cfg.n_layers and seen[0][2] == full.n_heads
+    a, b = (x[..., :cfg.vocab].float() for x in (got, want))
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())

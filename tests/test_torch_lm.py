@@ -17,7 +17,17 @@ serving run's 21 (request 3's fifth, margin 4.7e-4), whose token agrees
 all the same (``EXCLUDED``).
 The bf16 smoke case is held to 3e-2, the JAX package's own bf16 flash
 tolerance (tests/test_kernels_pallas.py).
+
+The registry: every ported config (``mamba2_130m``, ``granite_8b``,
+``qwen3_14b``, ``paper_kernel`` beside ``qwen2_5_3b``) has the
+reference's fields and smoke variant, ``all_arch_ids`` is the
+reference's; ``granite_8b`` and ``qwen3_14b`` (``qk_norm``) smoke
+models against the reference's on forward, prefill (flash) and
+teacher-forced decode; ``paper_kernel``'s smoke learner and protocol
+through ``engine.run`` against the reference's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +36,10 @@ import torch
 
 from conftest import PARITY_ATOL, PARITY_RTOL
 
+from repro.configs import all_arch_ids as jall_arch_ids
 from repro.configs import get as jget
+from repro.core import engine as jeng
+from repro.data.streams import susy_stream
 from repro.models import attention as jattn
 from repro.models import build as jbuild
 from repro.models import layers as jlayers
@@ -34,7 +47,10 @@ from repro.serving.lm import LMServingEngine as JEngine
 from repro.serving.lm import Request as JRequest
 
 from repro_torch import convert
+from repro_torch.configs import PORTED
+from repro_torch.configs import all_arch_ids as tall_arch_ids
 from repro_torch.configs import get as tget
+from repro_torch.core import engine as teng
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import build as tbuild
@@ -308,8 +324,101 @@ def test_unported_families_raise():
         with pytest.raises(NotImplementedError):
             tbuild(tc.with_(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tget("qwen3_14b")
+        tget("olmoe_1b_7b")
     # the loss is ported (tests/test_torch_train.py); an unported family's
     # loss still raises
     with pytest.raises(NotImplementedError):
         ttransformer.lm_loss(None, tc.with_(window=8), None, None)
+
+
+# ---------------------------------------------------------------------------
+# The registry and the configs that need no new model code
+# ---------------------------------------------------------------------------
+
+
+def test_registry_matches_reference():
+    assert tall_arch_ids() == jall_arch_ids()
+    assert tall_arch_ids(include_paper=True) == jall_arch_ids(
+        include_paper=True)
+    assert set(PORTED) == {"qwen2_5_3b", "mamba2_130m", "granite_8b",
+                           "qwen3_14b", "paper_kernel"}
+    for name in PORTED:
+        want, got = jget(name), tget(name)
+        if name == "paper_kernel":
+            assert (got.name, got.arch_type, got.m) == (
+                want.name, want.arch_type, want.m)
+            for part in ("learner", "protocol"):
+                for cfg_t, cfg_j in ((got, want), (got.smoke(), want.smoke())):
+                    assert dataclasses.asdict(getattr(cfg_t, part)) == \
+                        dataclasses.asdict(getattr(cfg_j, part)), part
+            assert (got.smoke().m, got.smoke().learner.budget) == (2, 16)
+            continue
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        assert dataclasses.asdict(got.smoke()) == \
+            dataclasses.asdict(want.smoke()), name
+        tbuild(got)                       # every ported model builds
+    assert tget("mamba2-130m") is tget("mamba2_130m")
+    assert tget("qwen3-14b") is tget("qwen3_14b")
+
+
+_DENSE = {}
+
+
+def _dense(arch):
+    """(reference cfg, port cfg, reference params, port params) of a
+    dense config's smoke model, biases and norm scales (``q_norm`` and
+    ``k_norm`` too) perturbed."""
+    if arch not in _DENSE:
+        jc = jget(arch).smoke().with_(use_flash=True)
+        tc = tget(arch).smoke().with_(use_flash=True)
+        jp = _perturb(jbuild(jc).init(jax.random.PRNGKey(0)),
+                      np.random.default_rng(1))
+        _DENSE[arch] = (jc, tc, jp, convert.lm_params(jp, tc, "cpu"))
+    return _DENSE[arch]
+
+
+@pytest.mark.parametrize("arch", ["granite_8b", "qwen3_14b"])
+def test_dense_config_smoke_matches_reference(arch):
+    """Forward, prefill on the flash path and 4 teacher-forced decode
+    steps against the reference's on one set of parameters (float32;
+    the dense decoder in bf16 is ``test_bf16_smoke_matches_reference``'s)."""
+    jc, tc, jp, tp = _dense(arch)
+    if arch == "qwen3_14b":
+        assert not torch.all(tp["layers"][0]["attn"]["q_norm"]["scale"] == 1)
+    japi, tapi = jbuild(jc), tbuild(tc)
+    B, S, L = 2, 19, 32
+    tok = _tokens(np.random.default_rng(7), jc.vocab, B, S)
+    want, _ = jax.jit(japi.forward)(jp, {"tokens": jnp.asarray(tok)})
+    got, _ = tapi.forward(tp, {"tokens": _t(tok)})
+    _close(got, want, f"{arch} forward_lm")
+    jlog, jcache = jax.jit(japi.prefill)(jp, {"tokens": jnp.asarray(tok)},
+                                         japi.init_caches(B, L))
+    tlog, tcache = tapi.prefill(tp, {"tokens": _t(tok)},
+                                tapi.init_caches(B, L, device="cpu"))
+    _close(tlog, jlog, f"{arch} prefill")
+    decode = jax.jit(japi.decode)
+    for step in range(4):
+        nxt = np.argmax(np.asarray(jlog, np.float32)[:, -1, :jc.vocab],
+                        axis=-1).astype(np.int32)[:, None]
+        jlog, jcache = decode(jp, jcache, jnp.asarray(nxt),
+                              jnp.asarray(S + step, jnp.int32))
+        tlog, tcache = tapi.decode(tp, tcache, _t(nxt), S + step)
+        _close(tlog, jlog, f"{arch} decode step {step}")
+
+
+def test_paper_kernel_run_matches_reference(backend_parity):
+    """``paper_kernel``'s smoke learner (SV, budget 16, d 8) and protocol
+    (dynamic, delta 1) at its m = 2 through ``engine.run``, 40 rounds of
+    ``susy_stream``: the same sync rounds and bytes, losses within the
+    parity pair."""
+    jc, tc = jget("paper_kernel").smoke(), tget("paper_kernel").smoke()
+    X, Y = susy_stream(40, tc.m, d=tc.learner.dim, seed=0)
+    want = jeng.run(jc.learner, jc.protocol, X, Y, backend="reference")
+    got = teng.run(tc.learner, tc.protocol, X, Y, backend="reference",
+                   device="cpu")
+    assert got.num_syncs == want.num_syncs > 0
+    np.testing.assert_array_equal(got.sync_rounds, want.sync_rounds)
+    np.testing.assert_array_equal(got.cumulative_bytes, want.cumulative_bytes)
+    np.testing.assert_array_equal(got.cumulative_errors,
+                                  want.cumulative_errors)
+    backend_parity(got.cumulative_loss, want.cumulative_loss, "loss")

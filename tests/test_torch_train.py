@@ -13,7 +13,12 @@ noise as tests/test_torch_lm.py does.
   the other way round (bf16 included), a port ``TrainState`` round
   trips bitwise through ``save_step`` / ``latest_step``, and a shape or
   leaf-count mismatch raises;
-- the ``main()`` CLI on the CPU.
+- the ``main()`` CLI on the CPU, whose ``--arch`` defaults to
+  ``mamba2_130m`` as the reference's does;
+- ``mamba2_130m``'s smoke model: a bf16 tree (float32 ``A_log``, ``D``,
+  ``dt_bias``) takes a train step with every gradient finite and each
+  leaf kept in its type, and its float32 loss and gradients equal the
+  reference's.
 
 The 6-round trainer runs under every optimizer and protocol kind are in
 tests/test_torch_train_rounds.py.
@@ -41,7 +46,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import build as tbuild
 from repro_torch.models import transformer as ttransformer
 from repro_torch.optim import OptimizerConfig
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 ARCH = "qwen2_5_3b"
 
@@ -190,7 +195,7 @@ def test_unported_families_raise_in_the_trainer():
     with pytest.raises(NotImplementedError):
         ttransformer.lm_loss(None, tc.with_(window=8), None, None)
     with pytest.raises(NotImplementedError):
-        tget("mamba2_130m")
+        tget("olmoe_1b_7b")
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +317,57 @@ def test_train_cli_on_the_cpu(capsys):
     assert out[0].startswith("step    0 loss=") and "syncs=  0" in out[0]
     assert "syncs=  1" in out[1]
     assert out[-1].endswith("1/2 rounds synchronized")
+
+
+def test_train_cli_defaults_to_mamba2(monkeypatch, capsys):
+    import repro_torch.configs as tconfigs
+
+    asked = []
+
+    def get(name):
+        asked.append(name)
+        return tget(name)
+
+    monkeypatch.setattr(tconfigs, "get", get)
+    ttrain.main(["--steps", "1", "--learners", "2", "--batch", "1",
+                 "--seq", "8", "--device", "cpu"])
+    assert asked == ["mamba2_130m"]
+    assert capsys.readouterr().out.splitlines()[-1].endswith(
+        "1/1 rounds synchronized")
+
+
+def test_ssm_loss_and_gradients_match_reference():
+    jc, tc = jget("mamba2_130m").smoke(), tget("mamba2_130m").smoke()
+    jp = _perturb(jbuild(jc).init(jax.random.PRNGKey(0)),
+                  np.random.default_rng(1))
+    tp = convert.lm_params(jp, tc, "cpu")
+    jb, tb = _batch(jc.vocab, 1, S=21)
+    jb, tb = ({k: v[0] for k, v in b.items()} for b in (jb, tb))
+    jloss, jgrads = jax.jit(jax.value_and_grad(jbuild(jc).loss))(jp, jb)
+    flat = [x.requires_grad_(True) for x in leaves(tp)]
+    tloss = tbuild(tc).loss(tp, tb)
+    tgrads = torch.autograd.grad(tloss, flat)
+    _close(tloss, np.asarray(jloss), "loss")
+    want = leaves(convert.lm_params(jgrads, tc, "cpu"))
+    assert len(want) == len(tgrads)
+    for n, (g, w) in enumerate(zip(tgrads, want)):
+        _close(g, w.numpy(), f"gradient leaf {n}")
+
+
+def test_ssm_bf16_train_step_keeps_each_leaf_type():
+    tc = tget("mamba2_130m").smoke().with_(dtype="bfloat16")
+    opt_cfg = OptimizerConfig(kind="sgd", lr=0.05, grad_clip=1.0)
+    state = ttrain.init_train_state(0, tc, 2, opt_cfg, device="cpu")
+    step = ttrain.make_train_step(
+        tc, tproto.ProtocolConfig(kind="periodic", period=1), opt_cfg)
+    _, batch = _batch(tc.vocab, 2)
+    new, loss = step(state, batch)
+    assert torch.isfinite(loss)
+    for a, b in zip(leaves(new.params), leaves(state.params)):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a.float()).all())
+    f32 = [x for x in leaves(new.params) if x.dtype == torch.float32]
+    assert len(f32) == 3 * tc.n_layers       # A_log, D, dt_bias a layer
+    # a sync charges each leaf's own bytes: 2 m |model|
+    one = tree_map(lambda x: x[0], state.params)
+    charge = np.float32(2 * 2 * tproto.model_bytes(one))
+    assert new.pstate.bytes_sent.numpy().tobytes() == charge.tobytes()

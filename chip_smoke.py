@@ -9,7 +9,13 @@ non-zero with no result line:
 1. ``env``: the card, its power limit, torch / CUDA versions, the TF32
    flags, the time to build the CUDA kernels from ``csrc/``, and the
    launch floor: the time of one PyTorch kernel on one element.
-2. one line per kernel: each hand-written kernel against its plain
+2. ``autotune``: ``kernels.autotune.tuned_blocks`` with a ``measure``
+   thunk on the card for each op (``sv_predict``, the RFF and linear
+   steps, ``rff``, ``gram``, ``quadform``) at its main path's shape:
+   every candidate geometry's output bitwise the default's, the
+   search's choice, source and each candidate's time, and a second
+   resolution of the key a hit with no new compile.  Then one line per
+   kernel: each hand-written kernel against its plain
    PyTorch version on the card, at the engine's shapes and at edge
    shapes (ragged budgets, budget 1, all-padded coefficients, every
    chunk and cluster edge of ``sv_predict`` and the RFF
@@ -211,6 +217,27 @@ non-zero with no result line:
    (tokens per wall second, peak memory); ``flash`` timed at each
    prefill's shape (the ``flash`` kernels entry's ``lm_dense_shapes``).
 
+15. ``lm_long``: ``recurrentgemma_9b`` at full width and depth (38
+   layers, d 4096, (rglru, rglru, attn) units with local attention of
+   window 2048, MQA hd 256, bf16 with float32 ``Lambda``; 9,396,408,320
+   parameters; weights drawn on the card from seed 0 after phase 14
+   freed its own): ``LMServingEngine`` at batch 4, max_len 4096, prompts
+   of 64, 700, 2,100 and 3,000 tokens (the 3,000-token prefill takes the
+   ring path), 32 new tokens, under ``_serve_checked`` (a repeat
+   bitwise, no kernel launched, tokens per wall second, prefill and
+   decode seconds, device activities a decode step); the
+   ``decode_32k`` shape (``make_decode_step`` at batch 128, caches of
+   ``input_specs``' shapes and dtypes, 3,357,638,656 B, filled by a
+   prefill of 128-token prompts, 8 steps with finite logits twice
+   bitwise, then timed); the same weights in float32, a 2,100-token
+   prefill and 16 teacher-forced decode steps within 2e-2 of the
+   largest logit of one windowed full forward; ``variant_for(qwen2_5_3b,
+   "long_500k")`` (window 4096, ``use_flash=True``) in float32, a
+   6,000-token prefill and 32 steps held the same way, its caches of
+   ``input_specs``' shapes, no ``flash`` launch; the trainer at full
+   width and depth cut to 3 layers, m = 2 x 2,304 tokens, periodic
+   (period 2) and dynamic, T = 4, under phase 12's checks.
+
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary (with each kernel's ``slice_shapes`` and
 ``mesh_shapes`` numbers and the SV sweep's grouped check sizes), and
@@ -335,7 +362,15 @@ BATCHES = (1, 2, 3, 4, 8, 16, 32, 33, 64)
 RFF_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
+#: the script's start (``time.perf_counter``), set by ``main``
+STARTED = None
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also gets the seconds since the
+    script's start (``elapsed_s``), the budget's record."""
+    if STARTED is not None and "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -529,6 +564,80 @@ def check_sv_predict(fused, ref, dev, gen):
     flops = B * N * (4 * D_IN + 8)      # cross, yy, the gaussian, a * k
     return errs, dict(ms, ms_b8=b8["ms"], device_ms_b8=b8["device_ms"]), \
         plain, bound_ms(nbytes, flops)
+
+
+def check_autotune(fused, rffmod, grammod, qf, dev, gen) -> dict:
+    """``autotune.tuned_blocks`` with a ``measure`` thunk on the card for
+    each op at its main path's shape: every candidate's output bitwise
+    the default geometry's (the search itself also holds each to the
+    first); the search's choice, source and each candidate's time (the
+    resolver's ``time_fn``, host clock, waited for); a second resolution
+    of the key a hit that compiles nothing.  Returns the phase line's
+    ``ops`` object; the kernel checks after it launch with the resolved
+    geometries."""
+    from repro_torch.kernels import autotune
+    from repro_torch.telemetry import CompileCounter
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    B, N, D, M = M_KERNEL, BUDGET, N_FEATURES, 64
+    X, SV, A = randn(B, D_IN), randn(B, N, D_IN), randn(B, N)
+    (Xs, ys, ws, bs), rkw = _step_args(B, D, D_IN, True, dev, gen)
+    (Xl, yl, wl, bl), _ = _step_args(M_LINEAR, D_IN, D_IN, False, dev, gen)
+    Xr, Wr, br = randn(M, D_IN), randn(D, D_IN), randn(D)
+    Xg = randn(GRAM_M, D_IN)
+    Xq, aq = randn(96, N, D_IN), randn(96, N)
+    kw = dict(kind="gaussian", gamma=GAMMA)
+    cases = {
+        "sv_predict": ((N, D_IN), f"gaussian:d={D_IN}", lambda blk:
+                       fused.sv_predict(X, SV, A, block_n=blk[0], **kw)),
+        "rff_step": ((D,), f"d={D_IN}:D={D}:hinge", lambda blk:
+                     fused.primal_step(Xs, ys, ws, bs, block_m=blk[0],
+                                       **rkw)),
+        "linear_step": ((D_IN,), f"d={D_IN}:D={D_IN}:hinge", lambda blk:
+                        fused.primal_step(Xl, yl, wl, bl, block_m=blk[0])),
+        "rff": ((M, D), f"d={D_IN}", lambda blk:
+                rffmod.rff(Xr, Wr, br, block_m=blk[0], block_d=blk[1])),
+        "gram": ((GRAM_M, GRAM_M), f"gaussian:d={D_IN}", lambda blk:
+                 grammod.gram(Xg, Xg, block_m=blk[0], block_n=blk[1], **kw)),
+        "quadform": ((N, N), f"gaussian:d={D_IN}", lambda blk:
+                     qf.quadform(Xq, Xq, aq, aq, block_m=blk[0],
+                                 block_n=blk[1], **kw)),
+    }
+    autotune.clear_cache()
+    out = {}
+    for op, (dims, kind, measure) in cases.items():
+        default = measure(autotune.default_blocks(op, dims))
+        cands = autotune.candidates_for(op, dims)
+        for blocks in cands:
+            got = measure(blocks)
+            for g, d in zip(got if isinstance(got, tuple) else (got,),
+                            default if isinstance(default, tuple)
+                            else (default,)):
+                assert torch.equal(g, d), \
+                    f"autotune: {op} {dims} {blocks} is not bitwise the default"
+        del default
+        with CompileCounter() as search:
+            blocks = autotune.tuned_blocks(op, dims, kind=kind,
+                                           measure=measure)
+        choice = autotune.cache_info()[(op, dims, "float32", kind)]
+        with CompileCounter() as hit:
+            again = autotune.tuned_blocks(op, dims, kind=kind,
+                                          measure=measure)
+        assert again == blocks and hit.compiles == 0, (op, hit.events)
+        assert choice.source == "search" and len(choice.times_ms) == \
+            len(cands), choice
+        out[op] = {"dims": list(dims), "kind": kind,
+                   "default": list(autotune.default_blocks(op, dims)),
+                   "choice": list(blocks), "source": choice.source,
+                   "candidates": len(cands), "bitwise_default": True,
+                   "times_ms": {"x".join(map(str, b)): ms
+                                for b, ms in choice.times_ms},
+                   "search_compiles": search.compiles,
+                   "hit_compiles": hit.compiles}
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_quadform(qf, ops, ref, dev, gen):
@@ -2596,10 +2705,11 @@ def run_sync_route(ops, ref) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _lm_requests(vocab: int, Request) -> list:
+def _lm_requests(vocab: int, Request, lens=None, new_tokens=None) -> list:
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, vocab, n) for n in LM_PROMPTS]
-    return [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+    prompts = [rng.integers(0, vocab, n) for n in (lens or LM_PROMPTS)]
+    return [Request(uid=i, prompt=p,
+                    max_new_tokens=new_tokens or LM_NEW_TOKENS)
             for i, p in enumerate(prompts)]
 
 
@@ -3508,20 +3618,31 @@ def _ssm_train(ops, cfg, dev) -> dict:
 
 def _ssm_serve(ops, cfg, params, dev) -> dict:
     """``LMServingEngine`` with the SSM: two batches of four of
-    ``LM_PROMPTS``, 32 new tokens; a repeat bitwise, no kernel launched;
-    then served with deterministic algorithms off (tokens per wall
-    second, prefill and decode seconds) and profiled (device activities
-    a decode step)."""
+    ``LM_PROMPTS``, 32 new tokens (``_serve_checked``)."""
+    return _serve_checked(ops, cfg, params, "SSM serving")
+
+
+def _serve_checked(ops, cfg, params, label, prompts=None, max_len=None,
+                   new_tokens=None) -> dict:
+    """``LMServingEngine`` at batch ``LM_BATCH`` on ``prompts`` (default
+    ``LM_PROMPTS``, ``LM_MAX_LEN``, ``LM_NEW_TOKENS``): a repeat bitwise,
+    no kernel launched; then served with deterministic algorithms off
+    (tokens per wall second, prefill and decode seconds) and profiled
+    (device activities a decode step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.lm import LMServingEngine, Request
 
+    prompts = prompts or LM_PROMPTS
+    max_len = max_len or LM_MAX_LEN
+    new_tokens = new_tokens or LM_NEW_TOKENS
+
     def engine():
         return LMServingEngine(cfg, params, batch_size=LM_BATCH,
-                               max_len=LM_MAX_LEN)
+                               max_len=max_len)
 
     def requests():
-        return _lm_requests(cfg.vocab, Request)
+        return _lm_requests(cfg.vocab, Request, prompts, new_tokens)
 
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3531,14 +3652,14 @@ def _ssm_serve(ops, cfg, params, dev) -> dict:
     det_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     outputs = {r.uid: r.output for r in done}
-    assert sorted(outputs) == list(range(len(LM_PROMPTS)))
+    assert sorted(outputs) == list(range(len(prompts)))
     for r in done:
-        assert len(r.output) == LM_NEW_TOKENS and r.latency_s > 0
+        assert len(r.output) == new_tokens and r.latency_s > 0
         assert all(0 <= t < cfg.vocab for t in r.output)
     again = engine().run(requests())
     assert {r.uid: r.output for r in again} == outputs, "a repeat differs"
     launches = dict(ops.LAUNCH_COUNTS)
-    assert not launches, f"SSM serving launched {launches}"
+    assert not launches, f"{label} launched {launches}"
 
     torch.use_deterministic_algorithms(False)
     try:
@@ -3556,13 +3677,13 @@ def _ssm_serve(ops, cfg, params, dev) -> dict:
     finally:
         torch.use_deterministic_algorithms(True)
     device_s = sum(_device_seconds(prof).values())
-    # each batch reads its tokens back LM_NEW_TOKENS times: after the
+    # each batch reads its tokens back new_tokens times: after the
     # prefill, then after each decode step.  Late in this process the
     # profiler can lose a read back, which merges two steps, so the
     # decode figures are medians over the steps below the prefills'
     # count of largest ones
     steps = _steps(prof)
-    batches = -(-len(LM_PROMPTS) // LM_BATCH)
+    batches = -(-len(prompts) // LM_BATCH)
     dec = sorted(steps, key=lambda x: x["kernels"])[:-batches]
     generated = sum(len(o) for o in outputs.values())
     prefill_s, decode_s = clock.seconds("prefill"), clock.seconds("decode")
@@ -3572,7 +3693,7 @@ def _ssm_serve(ops, cfg, params, dev) -> dict:
         return vals[len(vals) // 2] if vals else None
 
     return {"batch": LM_BATCH, "requests": len(done),
-            "prompt_lens": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
+            "prompt_lens": list(prompts), "new_tokens": new_tokens,
             "kernel_launches": launches, "max_memory_allocated": peak,
             "generated_tokens": generated,
             "deterministic_wall_s": det_s,
@@ -3585,7 +3706,7 @@ def _ssm_serve(ops, cfg, params, dev) -> dict:
             "profiled_wall_s": prof_s, "device_s": device_s,
             "device_busy_share": device_s / prof_s,
             "steps_traced": len(steps),
-            "steps_expected": batches * LM_NEW_TOKENS,
+            "steps_expected": batches * new_tokens,
             "decode_kernels_per_step_median": median("kernels"),
             "decode_device_ms_per_step_median": median("device_s", 1e3),
             "decode_span_ms_per_step_median": median("span_s", 1e3)}
@@ -3596,7 +3717,7 @@ def _ssm_decode_f32(cfg, params, dev) -> dict:
     (padded to a multiple of the chunk inside), then ``SSM_F32_STEPS``
     teacher-forced decode steps, each step's logits within ``LOGIT_TOL``
     of the largest logit of one full forward at that position
-    (tests/test_decode.py:37)."""
+    (tests/test_decode.py:37; ``_f32_against_full``)."""
     from repro_torch.models import build
     from repro_torch.tree import tree_map
 
@@ -3610,25 +3731,12 @@ def _ssm_decode_f32(cfg, params, dev) -> dict:
                                                                  LM_MAX_LEN)
     assert [tuple(c.h.shape) + tuple(c.conv_buf.shape) for c in short] == \
         [tuple(c.h.shape) + tuple(c.conv_buf.shape) for c in long_]
-    with torch.no_grad():
-        full = api.forward(p32, {"tokens": tokens})[0][..., :cfg.vocab]
-        logits, caches = api.prefill(
-            p32, {"tokens": tokens[:, :SSM_F32_PROMPT]}, short)
-        worst = 0.0
-        for step in range(SSM_F32_STEPS + 1):
-            pos = SSM_F32_PROMPT - 1 + step
-            got = logits[:, -1, :cfg.vocab]
-            want = full[:, pos]
-            rel = float((got - want).abs().max() / want.abs().max())
-            assert rel <= LOGIT_TOL, \
-                f"lm_ssm: float32 step {step} is {rel} of the largest logit"
-            worst = max(worst, rel)
-            if step < SSM_F32_STEPS:
-                logits, caches = api.decode(
-                    p32, caches, tokens[:, pos + 1:pos + 2], pos + 1)
-    del p32, full
-    return {"prompt": SSM_F32_PROMPT, "decode_steps": SSM_F32_STEPS,
-            "max_rel_logit_err": worst, "tol": LOGIT_TOL}
+    del short, long_
+    rec, _ = _f32_against_full(api, p32, tokens, SSM_F32_PROMPT,
+                               SSM_F32_STEPS, 8, "lm_ssm")
+    del p32
+    return {k: rec[k] for k in ("prompt", "decode_steps",
+                                "max_rel_logit_err", "tol")}
 
 
 def run_ssm_phase(ops) -> None:
@@ -3762,6 +3870,348 @@ def run_dense_phase(ops, totals, flashmod, ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: long-context serving -- the ring cache, the RG-LRU hybrid and
+# the long_500k policy
+# ---------------------------------------------------------------------------
+
+LONG_ARCH = "recurrentgemma_9b"
+LONG_PARAMS = 9_396_408_320       # jax.eval_shape of the reference's init
+LONG_MODEL_BYTES = 18_793_029_632
+LONG_MAX_LEN = 4096               # rings of min(4096, window 2048) slots
+LONG_PROMPTS = (64, 700, 2100, 3000)
+LONG_NEW_TOKENS = 32
+LONG_F32_PROMPT = 2100            # the float32 prefill -> decode check
+LONG_F32_STEPS = 16
+DECODE_32K_PROMPT = 128           # the decode_32k shape: batch 128
+DECODE_32K_STEPS = 8
+DECODE_32K_CACHE_BYTES = 3_357_638_656
+DENSE_LONG_ARCH = "qwen2_5_3b"    # variant_for(., "long_500k"): window 4096
+DENSE_LONG_WINDOW = 4096
+DENSE_LONG_PROMPT = 6000
+DENSE_LONG_STEPS = 32
+DENSE_LONG_CACHE_BYTES_F32 = 302_579_712
+LONG_TRAIN_LAYERS = 3             # one (rglru, rglru, attn) unit
+LONG_TRAIN_SEQ = 2304             # 2048 + 256: the window cuts the mask
+LONG_TRAIN_T = 4
+LONG_TRAIN_PERIOD = 2
+LONG_TRAIN_PARAMS = 1_705_078_784
+LONG_TRAIN_MODEL_BYTES = 3_410_173_952
+
+
+class _RingWatch:
+    """While active, records each prefill's cache fill as (tokens,
+    ring slots) (``transformer._fill_kv_cache``)."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.mod, self.orig = transformer, transformer._fill_kv_cache
+        self.fills = []
+
+    def __enter__(self):
+        self.mod._fill_kv_cache = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._fill_kv_cache = self.orig
+
+    def _record(self, cfg, cache, kv, S):
+        self.fills.append((S, cache.length))
+        return self.orig(cfg, cache, kv, S)
+
+
+def _f32_against_full(api, params, tokens, prompt, steps, length,
+                      label) -> dict:
+    """Prefill ``prompt`` tokens, then ``steps`` teacher-forced decode
+    steps; each step's logits within ``LOGIT_TOL`` of the largest logit
+    of one full forward at that position (tests/test_decode.py:37).
+    Returns the worst error and the caches' leaves."""
+    from repro_torch.tree import leaves
+
+    vocab = api.cfg.vocab
+    caches = api.init_caches(tokens.shape[0], length)
+    with torch.no_grad():
+        full = api.forward(params, {"tokens": tokens})[0][..., :vocab]
+        logits, caches = api.prefill(
+            params, {"tokens": tokens[:, :prompt]}, caches)
+        worst = 0.0
+        for step in range(steps + 1):
+            pos = prompt - 1 + step
+            got, want = logits[:, -1, :vocab], full[:, pos]
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= LOGIT_TOL, \
+                f"{label}: float32 step {step} is {rel} of the largest logit"
+            worst = max(worst, rel)
+            if step < steps:
+                logits, caches = api.decode(
+                    params, caches, tokens[:, pos + 1:pos + 2], pos + 1)
+    del full
+    return {"prompt": prompt, "decode_steps": steps,
+            "max_rel_logit_err": worst, "tol": LOGIT_TOL,
+            "cache_bytes": sum(x.numel() * x.element_size()
+                               for x in leaves(caches))}, caches
+
+
+def _long_decode_32k(ops, cfg, params, dev) -> dict:
+    """``make_decode_step`` at ``input_specs(cfg, "decode_32k")``'s batch
+    and caches: the caches allocated with ``init_caches(128, 32768 +
+    CACHE_MARGIN)``, each leaf the spec's shape and dtype, filled by a
+    batch-128 prefill of 128-token prompts; 8 greedy decode steps, their
+    logits finite, twice, bitwise; then timed with deterministic
+    algorithms off."""
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.launch.specs import CACHE_MARGIN, SHAPES, input_specs
+    from repro_torch.models import build
+    from repro_torch.tree import leaves
+
+    api = build(cfg)
+    shape = SHAPES["decode_32k"]
+    B, seq = shape["batch"], shape["seq"]
+    specs = input_specs(cfg, "decode_32k")
+    serve_step = make_decode_step(cfg)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, DECODE_32K_PROMPT)), device=dev)
+
+    def run(timed=False):
+        caches = api.init_caches(B, seq + CACHE_MARGIN)
+        got, want = leaves(caches), leaves(specs["caches"])
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype, (g.shape,
+                                                               w.shape)
+        nbytes = sum(x.numel() * x.element_size() for x in got)
+        assert nbytes == DECODE_32K_CACHE_BYTES, nbytes
+        with torch.no_grad():
+            logits, caches = api.prefill(params, {"tokens": prompts}, caches)
+            nxt = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+            toks, events = [nxt], []
+            for i in range(DECODE_32K_STEPS):
+                pos = DECODE_32K_PROMPT + i
+                if timed:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    nxt, caches = serve_step(params, caches, nxt, pos)
+                    e1.record()
+                    events.append((e0, e1))
+                else:
+                    logits, caches = api.decode(params, caches, nxt, pos)
+                    assert bool(torch.isfinite(logits).all()), pos
+                    nxt = torch.argmax(logits[:, -1, :cfg.vocab],
+                                       dim=-1)[:, None]
+                toks.append(nxt)
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), [a.elapsed_time(b) for a, b in events], \
+            nbytes
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    first, _, nbytes = run()
+    again, _, _ = run()
+    assert torch.equal(first, again), "decode_32k: a repeat differs"
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"decode_32k launched {launches}"
+    torch.use_deterministic_algorithms(False)
+    try:
+        timed, step_ms, _ = run(timed=True)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(step_ms)[len(step_ms) // 2]
+    return {"batch": B, "cache_len": seq + CACHE_MARGIN,
+            "ring_slots": cfg.window, "cache_bytes": nbytes,
+            "prompt": DECODE_32K_PROMPT, "steps": DECODE_32K_STEPS,
+            "repeat_bitwise": True, "logits_finite": True,
+            "kernel_launches": launches, "step_ms": step_ms,
+            "median_step_ms": med, "tokens_per_s": B / (med / 1e3),
+            "same_tokens_timed": bool(torch.equal(timed, first)),
+            "max_memory_allocated": peak}
+
+
+def _dense_long(ops, dev) -> dict:
+    """``variant_for(qwen2_5_3b, "long_500k")`` (window 4096) with
+    ``use_flash=True``, in float32 at B 1: a 6,000-token prefill (the
+    ring path) and 32 teacher-forced decode steps against the windowed
+    full forward; caches of ``input_specs``' shapes (4096 slots a layer
+    whatever the context); no ``flash`` launch."""
+    from repro_torch.configs import get
+    from repro_torch.launch.specs import CACHE_MARGIN, SHAPES, input_specs, \
+        variant_for
+    from repro_torch.models import build
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = variant_for(get(DENSE_LONG_ARCH).with_(use_flash=True),
+                      "long_500k")
+    assert cfg.window == cfg.long_context_window == DENSE_LONG_WINDOW
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    api = build(cfg.with_(dtype="float32"))
+    n = DENSE_LONG_PROMPT + DENSE_LONG_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, n)), device=dev)
+    ops.reset_launch_counts()
+    with _RingWatch() as ring:
+        rec, caches = _f32_against_full(
+            api, p32, tokens, DENSE_LONG_PROMPT, DENSE_LONG_STEPS,
+            SHAPES["long_500k"]["seq"] + CACHE_MARGIN, "dense long_500k")
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"windowed attention launched {launches}"
+    assert ring.fills == [(DENSE_LONG_PROMPT, cfg.window)] * cfg.n_layers
+    want = leaves(input_specs(cfg, "long_500k")["caches"])
+    got = leaves(caches)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert rec["cache_bytes"] == DENSE_LONG_CACHE_BYTES_F32, rec
+    del p32, caches
+    torch.cuda.empty_cache()
+    return dict(rec, arch=DENSE_LONG_ARCH, window=cfg.window,
+                use_flash=cfg.use_flash, kernel_launches=launches,
+                spec_cache_bytes_bf16=sum(w.numel() * w.element_size()
+                                          for w in want))
+
+
+def _long_train(ops, dev) -> dict:
+    """The trainer at ``recurrentgemma_9b``'s full width, depth cut to
+    one (rglru, rglru, attn) unit: m = 2 learners of 1 x 2,304 tokens a
+    round from ``token_stream(seed=0)``, sgd (lr 0.05, clip 1.0),
+    ``train_periodic`` (period 2) and ``train_dynamic`` (delta as phase
+    12 picks it), T = 4 each, under phase 12's checks and every gradient
+    finite (``Lambda``'s too); then rounds timed with deterministic
+    algorithms off."""
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data.streams import token_stream
+    from repro_torch.optim import OptimizerConfig
+
+    cfg = get(LONG_ARCH).with_(n_layers=LONG_TRAIN_LAYERS)
+    opt_cfg = OptimizerConfig(kind="sgd", lr=TRAIN_LR, momentum=0.0,
+                              grad_clip=1.0)
+    shape = (TRAIN_M, 1, LONG_TRAIN_SEQ)
+    batches = [{"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                          device=dev).reshape(shape),
+                "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                          device=dev).reshape(shape)}
+               for toks, labels in token_stream(
+                   LONG_TRAIN_T, TRAIN_M, LONG_TRAIN_SEQ, cfg.vocab, seed=0)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def checked(name, pcfg):
+        rec = _checked_train(name, cfg, pcfg, opt_cfg, batches, dev)
+        assert rec["grad_f32_leaves"] == cfg.pattern.count("rglru"), rec
+        assert rec["grad_max_abs_f32_leaves"] > 0.0, \
+            "no gradient reached Lambda"
+        return rec
+
+    periodic = ProtocolConfig(kind="periodic", period=LONG_TRAIN_PERIOD)
+    runs = {"train_periodic": checked("hybrid periodic", periodic)}
+    rec = runs["train_periodic"]
+    assert rec["n_params"] == LONG_TRAIN_PARAMS, rec["n_params"]
+    assert rec["charge"] == 2 * TRAIN_M * LONG_TRAIN_MODEL_BYTES, \
+        rec["charge"]
+    assert sum(rec["flags"]) == LONG_TRAIN_T // LONG_TRAIN_PERIOD
+    lo = max(rec["dists"][0])
+    hi = max(max(d) for d in rec["dists"][:LONG_TRAIN_PERIOD])
+    every = [x for d in rec["dists"] for x in d]
+    delta = float(np.sqrt(lo * hi))
+    assert min(every) < delta < max(every) and lo < delta < hi, (lo, hi)
+    dynamic = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=1)
+    runs["train_dynamic"] = checked("hybrid dynamic", dynamic)
+    assert 0 < sum(runs["train_dynamic"]["flags"]) < LONG_TRAIN_T, \
+        runs["train_dynamic"]["flags"]
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"the hybrid trainer launched {launches}"
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.use_deterministic_algorithms(False)
+    try:
+        round_ms, wall, state, step = _timed_train_rounds(
+            cfg, dynamic, opt_cfg, batches, TRAIN_M, dev)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    del state, step
+    tokens = TRAIN_M * LONG_TRAIN_SEQ
+    med = sorted(round_ms[1:])[len(round_ms[1:]) // 2]
+    return {
+        "reduced": {"n_layers": f"{get(LONG_ARCH).n_layers} -> "
+                    f"{LONG_TRAIN_LAYERS} (one (rglru, rglru, attn) unit)"},
+        "m": TRAIN_M, "tokens_per_round": tokens, "T": LONG_TRAIN_T,
+        "optimizer": dataclasses.asdict(opt_cfg), "dynamic_delta": delta,
+        "runs": {name: {
+            "protocol": dataclasses.asdict(
+                periodic if name == "train_periodic" else dynamic),
+            "losses": r["losses"], "sync_rounds": [
+                t + 1 for t, f in enumerate(r["flags"]) if f],
+            "dists": r["dists"], "bytes_per_sync": r["charge"],
+            "grad_max_abs_f32_leaves": r["grad_max_abs_f32_leaves"],
+            "repeat_bitwise": True} for name, r in runs.items()},
+        "params": LONG_TRAIN_PARAMS, "model_bytes": LONG_TRAIN_MODEL_BYTES,
+        "kernel_launches": launches, "max_memory_allocated": peak,
+        "round_ms": round_ms, "median_round_ms": med,
+        "tokens_per_s": tokens / (med / 1e3), "timed_wall_s": wall}
+
+
+def run_long_phase(ops) -> None:
+    """Phase 15 (``lm_long``): ``recurrentgemma_9b`` at full width and
+    depth (38 layers, d 4096, bf16 with float32 ``Lambda``; weights drawn
+    on the card from seed 0 after phase 14 freed its own):
+    ``LMServingEngine`` at batch 4, max_len 4096 (rings of 2048), on
+    prompts of 64 to 3,000 tokens (the 3,000-token prefill takes the ring
+    path), 32 new tokens; the ``decode_32k`` shape at batch 128; the same
+    weights in float32 against a full forward; the dense long-context
+    variant; and the trainer at full width, cut depth."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import model_bytes
+    from repro_torch.models import build, count_params
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get(LONG_ARCH)
+    dev = device_mod.resolve()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    assert count_params(params) == LONG_PARAMS
+    assert model_bytes(params) == LONG_MODEL_BYTES
+    line = {"phase": "lm_long", "arch": LONG_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype, "window": cfg.window,
+            "pattern_unit": list(cfg.layer_pattern), "params": LONG_PARAMS}
+    with _RingWatch() as ring:
+        line["serve"] = _serve_checked(ops, cfg, params, "lm_long serving",
+                                       LONG_PROMPTS, LONG_MAX_LEN,
+                                       LONG_NEW_TOKENS)
+    L = min(LONG_MAX_LEN, cfg.window)
+    attn_layers = cfg.pattern.count("attn")
+    assert (max(LONG_PROMPTS), L) in ring.fills and \
+        len(ring.fills) % attn_layers == 0, ring.fills[:4]
+    line["serve"]["ring_fills"] = sorted(set(ring.fills))
+    line["decode_32k"] = _long_decode_32k(ops, cfg, params, dev)
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    api = build(cfg.with_(dtype="float32"))
+    n = LONG_F32_PROMPT + LONG_F32_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, n)), device=dev)
+    ops.reset_launch_counts()
+    line["f32"], caches = _f32_against_full(
+        api, p32, tokens, LONG_F32_PROMPT, LONG_F32_STEPS, n + 8,
+        "lm_long")
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    ring_pos = sorted(caches[cfg.pattern.index("attn")].slot_pos.tolist())
+    assert ring_pos == list(range(n - L, n)), ring_pos[:3]
+    del p32, caches
+    torch.cuda.empty_cache()
+    line["dense_long_500k"] = _dense_long(ops, dev)
+    line["train"] = _long_train(ops, dev)
+    torch.cuda.empty_cache()
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(line)
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi() -> str:
@@ -3773,6 +4223,8 @@ def nvidia_smi() -> str:
 
 
 def main() -> int:
+    global STARTED
+    STARTED = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3806,6 +4258,9 @@ def main() -> int:
           "launch_floor_ms": floor["ms"],
           "launch_floor_device_ms": floor["device_ms"]})
 
+    tuned = check_autotune(fused, rffmod, gram, qf, dev,
+                           torch.Generator().manual_seed(1))
+    emit({"phase": "autotune", "ops": tuned})
     gen = torch.Generator().manual_seed(0)
     results = {}
     checks = (
@@ -3872,7 +4327,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_ssm_phase(ops)
     dense_shapes = run_dense_phase(ops, totals, flash, ref)
+    torch.cuda.empty_cache()
+    run_long_phase(ops)
 
+    tuned_op = {"sv_predict": "sv_predict", "quadform": "quadform",
+                "primal_step_rff": "rff_step",
+                "primal_step_linear": "linear_step", "rff": "rff",
+                "gram": "gram"}
     meta = {
         "sv_predict": ("src/repro_torch/kernels/csrc/sv_predict.cu",
                        "src/repro/kernels/fused.py:100", ("sv_predict",)),
@@ -3926,6 +4387,10 @@ def main() -> int:
                else {}),
             # flash at the dense configs' prefill shapes (phase 14)
             **({"lm_dense_shapes": dense_shapes} if name == "flash"
+               else {}),
+            # the geometry phase 2's search chose at the main path's shape
+            **({"autotune": {k: tuned[tuned_op[name]][k] for k in (
+                "choice", "source", "times_ms")}} if name in tuned_op
                else {}),
             **(grouped if name == "quadform" else {})})
     print(smi, flush=True)

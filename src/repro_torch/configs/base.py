@@ -34,7 +34,7 @@ ARCH_IDS: List[str] = [
 
 #: The architectures the port runs.
 PORTED = ("qwen2_5_3b", "mamba2_130m", "granite_8b", "qwen3_14b",
-          "paper_kernel")
+          "paper_kernel", "recurrentgemma_9b")
 
 # CLI aliases (dashes as given in the reference)
 ALIASES = {

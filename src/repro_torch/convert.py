@@ -8,8 +8,9 @@ counters as int32, exactly as the reference stores them.
 
 ``lm_params`` carries an LM parameter tree across (each leaf keeps its
 float32 or bfloat16 type, so a bf16 Mamba-2 tree keeps its float32
-``A_log``, ``D`` and ``dt_bias``), ``lm_caches`` the LM's prefill and
-decode caches, ``protocol_state`` a protocol's carry and
+``A_log``, ``D`` and ``dt_bias`` and a bf16 hybrid its float32
+``Lambda``), ``lm_caches`` the LM's prefill and decode caches (over
+stages and units of mixed kinds, as ``lm_params``), ``protocol_state`` a protocol's carry and
 ``train_state`` the LM trainer's whole state; ``to_numpy`` reads the
 port's structures back, bfloat16 widened to float32 (exact).
 """
@@ -27,6 +28,7 @@ from .core.rff import RFFLearnerState, RFFSpec
 from .core.rkhs import SVModel
 from .launch.train import TrainState
 from .models.attention import KVCache
+from .models.rglru import LRUState
 from .models.ssm import SSMState
 from .models.transformer import PORTED_KINDS
 from .tree import tree_map
@@ -90,49 +92,69 @@ def _tree(t, fn):
     return fn(t)
 
 
-def _check_uniform(cfg, stages) -> None:
-    """The port's layers are one stack of one ported block kind."""
-    if len(cfg.stages) != 1 or len(cfg.stages[0][0]) != 1 \
-            or cfg.stages[0][0][0] not in PORTED_KINDS \
-            or cfg.stages[0][1] != cfg.n_layers or len(stages) != 1:
+def _layers(cfg, stages) -> list:
+    """(stage, repeat, unit index, kind) of each layer in
+    ``cfg.pattern``'s order: unit j of repeat r in stage s is layer
+    ``sum of the earlier stages' layers + r len(unit) + j``.  Checks that
+    the reference's stages are ``cfg.stages``' and their kinds ported."""
+    out = []
+    for s, (unit, repeats) in enumerate(cfg.stages):
+        out += [(s, r, j, kind) for r in range(repeats)
+                for j, kind in enumerate(unit)]
+    kinds = {kind for *_, kind in out}
+    if kinds - PORTED_KINDS:
         raise NotImplementedError(
-            f"only a uniform stack of {sorted(PORTED_KINDS)} blocks is "
-            f"ported, not {cfg.stages}")
+            f"block kinds {sorted(kinds - PORTED_KINDS)} are not ported; "
+            f"ported: {sorted(PORTED_KINDS)}")
+    if [kind for *_, kind in out] != list(cfg.pattern) \
+            or len(stages) != len(cfg.stages) \
+            or any(sorted(st) != [f"b{j}" for j in range(len(unit))]
+                   for st, (unit, _) in zip(stages, cfg.stages)):
+        raise ValueError(f"the reference's stages do not match "
+                         f"{cfg.stages}")
+    return out
 
 
 def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
     """The port's LM parameters from the reference's tree
     (``repro.models.build(cfg).init``): ``embed``, ``final_norm``,
-    ``lm_head`` when untied, and ``params["stages"][0]["b0"]``'s axis of
-    n_layers unstacked into ``layers``, one dict per layer.  With
+    ``lm_head`` when untied, and each stage's units unstacked into
+    ``layers``, one dict per layer in pattern order (``_layers``).  With
     ``stacked`` every leaf carries a leading learner axis first (the
     trainer's layout).  ``device=None`` is the CUDA card."""
     dev = device_mod.resolve(device)
-    _check_uniform(cfg, params["stages"])
-    layer_axis = 1 if stacked else 0
-    blocks = _tree(params["stages"][0]["b0"], np.asarray)
+    layers = _layers(cfg, params["stages"])
+    repeat_axis = 1 if stacked else 0
+    units = {(s, j): _tree(params["stages"][s][f"b{j}"], np.asarray)
+             for s, _, j, _ in layers}
     out = {k: _tree(params[k], lambda x: _leaf(x, dev))
            for k in ("embed", "final_norm", "lm_head") if k in params}
     out["layers"] = [
-        _tree(blocks, lambda x, i=i: _leaf(np.take(x, i, axis=layer_axis), dev))
-        for i in range(cfg.n_layers)]
+        _tree(units[s, j],
+              lambda x, r=r: _leaf(np.take(x, r, axis=repeat_axis), dev))
+        for s, r, j, _ in layers]
     return out
+
+
+_CACHES = {"attn": KVCache, "ssm": SSMState, "rglru": LRUState}
 
 
 def lm_caches(caches: Any, cfg, device=None) -> list:
     """The port's per-layer caches from the reference's stacked
     per-stage ones (``init_caches`` / ``prefill`` / ``decode_step``):
-    ``caches[0]["b0"]``'s axis of n_layers unstacked into one
-    ``KVCache`` or ``SSMState`` a layer, each leaf in its own type
+    each stage's units unstacked into one ``KVCache``, ``SSMState`` or
+    ``LRUState`` a layer in pattern order, each leaf in its own type
     (``slot_pos`` as int32), so a prefill or a decode can start from a
     JAX state."""
     dev = device_mod.resolve(device)
-    _check_uniform(cfg, caches)
-    stack = caches[0]["b0"]
-    kind = SSMState if hasattr(stack, "conv_buf") else KVCache
-    fields = [np.asarray(getattr(stack, f)) for f in kind._fields]
-    return [kind(*(_array(np.take(x, i, axis=0), dev) for x in fields))
-            for i in range(cfg.n_layers)]
+    out = []
+    for s, r, j, kind in _layers(cfg, caches):
+        stack = caches[s][f"b{j}"]
+        fields = _CACHES[kind]._fields
+        out.append(_CACHES[kind](*(
+            _array(np.take(np.asarray(getattr(stack, f)), r, axis=0), dev)
+            for f in fields)))
+    return out
 
 
 def _array(x, device) -> torch.Tensor:

@@ -8,6 +8,10 @@ by ``core/compression.py::project``, whose solve needs the Gram of a
 sync's slots (the reference leaves that Gram to XLA; ``truncate`` needs
 only one form of it and takes ``quadform``).
 
+Its tiles are compile-time constants of csrc/gram.cu (``TILE``:
+``kTM`` x ``kTN``), the one geometry ``autotune`` resolves for op
+``gram``.
+
 A CPU tensor goes to the plain version (``ref.gram_ref``); a CUDA
 tensor goes to the kernel, or the wrapper raises.
 """
@@ -15,18 +19,38 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, autotune, ref
 from .quadform import KINDS
 
 
-def gram(X, Y, *, kind="gaussian", gamma=1.0, degree=3,
-         coef0=1.0) -> torch.Tensor:
-    """X (M, d), Y (N, d) -> K (M, N) fp32."""
+#: (rows, columns) of K a tile: kTM, kTN in csrc/gram.cu
+TILE = (128, 128)
+
+
+def _check(dims, blocks) -> None:
+    if tuple(blocks) != TILE:
+        raise ValueError(f"gram's tiles are compiled in: (block_m, block_n) "
+                         f"= {TILE}, not {tuple(blocks)}")
+
+
+autotune.register("gram", default=lambda dims: TILE, check=_check)
+
+
+def gram(X, Y, *, kind="gaussian", gamma=1.0, degree=3, coef0=1.0,
+         block_m=None, block_n=None) -> torch.Tensor:
+    """X (M, d), Y (N, d) -> K (M, N) fp32.  ``block_m`` / ``block_n``:
+    the rows / columns of K a tile (128 / 128 only); None resolves
+    through ``autotune.tuned_blocks("gram", (M, N))``."""
     if X.dim() != 2 or Y.dim() != 2 or X.shape[1] != Y.shape[1]:
         raise ValueError(f"gram shapes X {tuple(X.shape)}, Y "
                          f"{tuple(Y.shape)}")
     if kind not in KINDS:
         raise ValueError(f"unknown kernel {kind!r}")
+    dims = (X.shape[0], Y.shape[0])
+    if block_m is None or block_n is None:
+        autotune.tuned_blocks("gram", dims, kind=f"{kind}:d={X.shape[1]}")
+    else:
+        _check(dims, (block_m, block_n))
     if X.device.type == "cpu":
         return ref.gram_ref(X, Y, kind=kind, gamma=gamma, degree=degree,
                             coef0=coef0)

@@ -9,7 +9,11 @@
   ``backend="reference"`` and the byte ledger backend-independent.
 - ``LAUNCH_COUNTS``: launches per kernel name; a wrapper adds one only
   where its CUDA kernel runs (never on the CPU plain path).
-- Block sizes are fixed constants in the CUDA sources; no autotuner.
+- ``block_*`` keywords, as the reference's: each names the port's
+  launch geometry on that axis (the docstrings say which).  ``None``
+  resolves through ``autotune.tuned_blocks`` with the reference's
+  ``kind`` strings; a value the kernel cannot take raises
+  ``ValueError``.
 
 ``spec`` arguments are duck-typed against ``core.rkhs.KernelSpec``
 (kind / gamma / degree / coef0).
@@ -48,42 +52,48 @@ def _kw(spec) -> dict:
 
 
 def gram(X, Y, *, kind="gaussian", gamma=1.0, degree=3, coef0=1.0,
-         force_kernel=False):
+         block_m=None, block_n=None, force_kernel=False):
     """K(X, Y): (M, d), (N, d) -> (M, N) fp32.  Engages on (M, N) like
     the reference's; inputs of another float dtype are widened first, as
-    the reference's kernel does."""
+    the reference's kernel does.  ``block_m`` / ``block_n``: the rows /
+    columns of K a tile (compiled in: 128 / 128)."""
     M, N = X.shape[0], Y.shape[0]
     if not force_kernel and not engages(M, N):
         return ref.gram_ref(X, Y, kind=kind, gamma=gamma, degree=degree,
                             coef0=coef0)
     return gram_mod.gram(X.float().contiguous(), Y.float().contiguous(),
-                         kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+                         kind=kind, gamma=gamma, degree=degree, coef0=coef0,
+                         block_m=block_m, block_n=block_n)
 
 
 def sv_predict(X, SV, A, *, kind="gaussian", gamma=1.0, degree=3,
-               coef0=1.0, force_kernel=False):
+               coef0=1.0, block_n=None, force_kernel=False):
     """Fused batched SV predictions: X (B, d), SV (B, N, d), A (B, N) ->
-    (B,).  Engagement depends on the budget N only, never on B."""
+    (B,).  Engagement depends on the budget N only, never on B.
+    ``block_n``: the budget slots a block of a row's cluster owns (its
+    chunk; at most 8 blocks a row)."""
     N = SV.shape[1]
     if not force_kernel and not engages(N):
         return ref.sv_predict_ref(X, SV, A, kind=kind, gamma=gamma,
                                   degree=degree, coef0=coef0)
     return fused.sv_predict(X.contiguous(), SV.contiguous(), A.contiguous(),
                             kind=kind, gamma=gamma, degree=degree,
-                            coef0=coef0)
+                            coef0=coef0, block_n=block_n)
 
 
 def quadform(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0, degree=3,
-             coef0=1.0, force_kernel=False):
+             coef0=1.0, block_m=None, block_n=None, force_kernel=False):
     """P forms alpha_p^T K(X_p, Y_p) beta_p: (P, M, d), (P, N, d),
-    (P, M), (P, N) -> (P,), without materializing K on the kernel path."""
+    (P, M), (P, N) -> (P,), without materializing K on the kernel path.
+    ``block_m`` / ``block_n``: the rows of X_p / columns of Y_p a tile
+    (compiled in: 64 / 128)."""
     if not force_kernel and not engages(X.shape[1], Y.shape[1]):
         return ref.quadform_ref(X, Y, alpha, beta, kind=kind, gamma=gamma,
                                 degree=degree, coef0=coef0)
     return quadform_mod.quadform(
         X.contiguous(), Y.contiguous(), alpha.contiguous(),
         beta.contiguous(), kind=kind, gamma=gamma, degree=degree,
-        coef0=coef0)
+        coef0=coef0, block_m=block_m, block_n=block_n)
 
 
 def rkhs_dist_sq(F, G, af, ag, *, kind="gaussian", gamma=1.0, degree=3,
@@ -161,28 +171,37 @@ def rkhs_dist_sq_each(F, G, af, ag, *, kind="gaussian", gamma=1.0,
 
 
 def fused_primal_step(X, Yl, w, b, *, W=None, bias=None, scale=1.0,
-                      loss="hinge", eta=0.5, lam=0.01, force_kernel=False):
+                      loss="hinge", eta=0.5, lam=0.01, block_m=None,
+                      force_kernel=False):
     """One fused online round for B stacked primal learners ->
     (w_new, b_new, ell, yhat); with ``W``/``bias`` the RFF map runs
-    inside the kernel, otherwise z = x (the linear family)."""
+    inside the kernel, otherwise z = x (the linear family).
+    ``block_m``: RFF, the features a block of a learner's cluster owns
+    (its chunk, at most 8 blocks); linear, the lane stride of a
+    learner's warp (32 only)."""
     B, D = X.shape[0], w.shape[1]
     if not force_kernel and not engages(B, D):
         return ref.primal_step_ref(X, Yl, w, b, W=W, bias=bias, scale=scale,
                                    loss=loss, eta=eta, lam=lam)
     c = lambda t: None if t is None else t.contiguous()    # noqa: E731
     return fused.primal_step(c(X), c(Yl), c(w), c(b), W=c(W), bias=c(bias),
-                             scale=scale, loss=loss, eta=eta, lam=lam)
+                             scale=scale, loss=loss, eta=eta, lam=lam,
+                             block_m=block_m)
 
 
-def rff_features(X, W, b, *, num_features=None, force_kernel=False):
+def rff_features(X, W, b, *, num_features=None, block_m=None, block_d=None,
+                 force_kernel=False):
     """phi(X) = sqrt(2/D) cos(X W^T + b): X (M, d), W (D, d), b (D,) ->
     (M, D) fp32, D = ``num_features`` or W's rows.  Engages on (M, D)
-    like the reference's; below the threshold it is the plain version."""
+    like the reference's; below the threshold it is the plain version.
+    ``block_m``: the rows of Z a block owns (8 R for R rows a thread:
+    8, 16, 32 or 64); ``block_d``: its columns (32 only)."""
     M, D = X.shape[0], W.shape[0]
     if not force_kernel and not engages(M, D):
         return ref.rff_ref(X, W, b, num_features=num_features or D)
     return rff_mod.rff(X.contiguous(), W.contiguous(), b.contiguous(),
-                       num_features=num_features or D)
+                       num_features=num_features or D, block_m=block_m,
+                       block_d=block_d)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,10 @@ launch, never materializing a Gram matrix.  Replaces
 that kernel over the learners, which is what one launch of P forms
 computes here.
 
+Its tiles are compile-time constants of csrc/quadform.cu (``TILE``:
+``kTM`` rows of X_p by ``kTN`` columns of Y_p), the one geometry
+``autotune`` resolves for op ``quadform``.
+
 A CPU tensor goes to the plain version (``ref.quadform_ref``); a CUDA
 tensor goes to the kernel, or the wrapper raises.
 """
@@ -13,16 +17,30 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, autotune, ref
 
 #: Rows of X per block in pass 1 (``kTM`` in csrc/quadform.cu).
 ROWS_PER_BLOCK = 64
+#: (rows of X_p, columns of Y_p) a tile: kTM, kTN in csrc/quadform.cu
+TILE = (ROWS_PER_BLOCK, 128)
 KINDS = {"gaussian": 0, "linear": 1, "poly": 2}
 
 
+def _check(dims, blocks) -> None:
+    if tuple(blocks) != TILE:
+        raise ValueError(f"quadform's tiles are compiled in: (block_m, "
+                         f"block_n) = {TILE}, not {tuple(blocks)}")
+
+
+autotune.register("quadform", default=lambda dims: TILE, check=_check)
+
+
 def quadform(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0, degree=3,
-             coef0=1.0) -> torch.Tensor:
-    """X (P, M, d), Y (P, N, d), alpha (P, M), beta (P, N) -> (P,) fp32."""
+             coef0=1.0, block_m=None, block_n=None) -> torch.Tensor:
+    """X (P, M, d), Y (P, N, d), alpha (P, M), beta (P, N) -> (P,) fp32.
+    ``block_m`` / ``block_n``: the rows of X_p / columns of Y_p a tile
+    (64 / 128 only); None resolves through
+    ``autotune.tuned_blocks("quadform", (M, N))``."""
     P, M, d = X.shape
     if Y.dim() != 3 or Y.shape[0] != P or Y.shape[2] != d \
             or alpha.shape != (P, M) or beta.shape != (P, Y.shape[1]):
@@ -31,6 +49,11 @@ def quadform(X, Y, alpha, beta, *, kind="gaussian", gamma=1.0, degree=3,
                          f"beta {tuple(beta.shape)}")
     if kind not in KINDS:
         raise ValueError(f"unknown kernel {kind!r}")
+    if block_m is None or block_n is None:
+        autotune.tuned_blocks("quadform", (M, Y.shape[1]),
+                              kind=f"{kind}:d={d}")
+    else:
+        _check((M, Y.shape[1]), (block_m, block_n))
     if X.device.type == "cpu":
         return ref.quadform_ref(X, Y, alpha, beta, kind=kind, gamma=gamma,
                                 degree=degree, coef0=coef0)

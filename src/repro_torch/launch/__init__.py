@@ -1,6 +1,8 @@
 """Launch layer (port of ``repro.launch``): the learner mesh
-(``launch.mesh``) and the serving launch surface (``launch.serve``).
+(``launch.mesh``), the serving launch surface (``launch.serve``), the
+LM protocol trainer (``launch.train``) and the assigned input shapes
+with the long-context policy (``launch.specs``).
 
 As in the reference this package imports nothing eagerly: import
-``repro_torch.launch.mesh`` or ``repro_torch.launch.serve``.
+``repro_torch.launch.mesh``, ``.serve``, ``.train`` or ``.specs``.
 """

@@ -15,8 +15,17 @@ the cache's tensors in place and return the same cache (a full-width
 cache is 151 MB at B = 4, L = 2048; a copy per token would move it
 every step).
 
-MLA, cross attention, M-RoPE and the sliding-window ring cache raise
-``NotImplementedError`` (ROADMAP.md).
+Sliding window (``window > 0``): the full-sequence path masks keys
+more than ``window - 1`` positions back and never takes the flash
+kernel, whatever ``cfg.use_flash`` says (the reference's rule,
+``attention.py:273``).  The cache is then a ring of L = min(length,
+window) slots: token p lives in slot p % L, ``slot_pos`` says which
+token a slot holds, and decode masks by it; positions run past L.
+Ring writes are plain slice copies into distinct slots, deterministic
+on the card.
+
+MLA, cross attention and M-RoPE raise ``NotImplementedError``
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -219,24 +228,28 @@ def init_kv_cache(cfg: ModelConfig, B: int, length: int, dtype,
 def gqa_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, pos: int,
                cache: KVCache, *, window: int = 0):
     """One token at absolute position ``pos`` (a host int) against the
-    cache, which is written in place.  Returns (out, cache)."""
-    if window > 0:
-        raise _not_ported("the sliding-window ring cache")
+    cache, which is written in place.  With ``window > 0`` the cache is
+    a ring: the token goes to slot pos % L and any pos >= 0 is taken.
+    Returns (out, cache)."""
     B = x_t.shape[0]
     hd = cfg.hd
     pos = int(pos)
-    if not 0 <= pos < cache.length:
-        raise ValueError(f"position {pos} outside the cache of "
-                         f"{cache.length} slots")
+    L = cache.length
+    if pos < 0 or (window == 0 and pos >= L):
+        raise ValueError(f"position {pos} outside the cache of {L} slots")
+    slot = pos % L
     q, k, v = _qkv(cfg, p, x_t)
     posb = torch.full((B, 1), pos, dtype=torch.int64, device=x_t.device)
     q, k = _rotate(cfg, q, k, posb)
 
-    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
-    cache.slot_pos[pos] = pos
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.slot_pos[slot] = pos
     spos = cache.slot_pos
-    mask = ((spos >= 0) & (spos <= pos)).reshape(1, 1, 1, -1)
+    valid = (spos >= 0) & (spos <= pos)
+    if window > 0:
+        valid &= spos > pos - window
+    mask = valid.reshape(1, 1, 1, -1)
     y = _sdpa_grouped(q, cache.k, cache.v, mask, _inv_sqrt(hd))
     out = dense(p["wo"], y.reshape(B, 1, cfg.n_heads * hd))
     return out, cache

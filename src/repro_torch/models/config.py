@@ -4,9 +4,9 @@
 
 One ``ModelConfig`` covers all six architecture families of the
 reference: dense / MoE / SSM / hybrid / VLM / audio.  The port runs the
-dense decoder so far (``models/transformer.py``); the fields of the
-other families are kept so configurations stay comparable, and a model
-that needs them raises.  Fields that only steer XLA (``remat*``,
+dense, SSM and hybrid decoders so far (``models/transformer.py``); the
+fields of the other families are kept so configurations stay
+comparable, and a model that needs them raises.  Fields that only steer XLA (``remat*``,
 ``shard_activations``, ``act_batch_axes``, ``unroll_scan``) are kept
 and ignored.
 """

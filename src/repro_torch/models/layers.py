@@ -9,7 +9,9 @@ Initializers take an explicit ``torch.Generator`` and draw on its
 device.  They follow the reference's scales, not its numbers: JAX's
 keys and PyTorch's generators give different draws from the same seed,
 so the tests carry the reference's parameters across
-(``convert.lm_params``).  ``apply_mrope`` waits for the VLM slice.
+(``convert.lm_params``).  ``apply_mrope`` waits for the VLM slice,
+``constrain`` for MoE and ``sinusoidal_pos`` for the encoder-decoder
+family.
 """
 from __future__ import annotations
 
@@ -25,6 +27,13 @@ Params = Dict[str, torch.Tensor]
 def _randn(gen: torch.Generator, *shape) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32)
+
+
+def expand_left(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A parameter with ``ndim - 1`` leading size-1 axes, so that its
+    broadcast against a rank-``ndim`` activation is explicit, as the
+    reference's."""
+    return v.reshape((1,) * (ndim - 1) + tuple(v.shape))
 
 
 # ---------------------------------------------------------------------------

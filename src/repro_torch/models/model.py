@@ -13,9 +13,11 @@
 prefix, ``labels`` (B, S) for ``loss``).  ``init`` and ``init_caches``
 resolve ``device=None`` to the CUDA card and raise where there is none;
 a generator passed to ``init`` must live on that device.  The dense
-(``attn``) and SSM (``ssm``) decoders run; ``init_caches`` gives one
-``KVCache`` or ``SSMState`` per layer.  The encoder-decoder family
-raises ``NotImplementedError`` (ROADMAP.md).
+(``attn``, sliding-window too), SSM (``ssm``) and hybrid (``rglru`` with
+local attention) decoders run; ``init_caches`` gives one ``KVCache``
+(a ring when ``cfg.window > 0``), ``SSMState`` or ``LRUState`` per
+layer, in pattern order.  The encoder-decoder family raises
+``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -1,15 +1,16 @@
-"""Decoder-only LM assembly (port of ``repro/models/transformer.py``,
-the dense ``"attn"`` block).
+"""Decoder-only LM assembly (port of ``repro/models/transformer.py``).
 
 Parameters are plain dictionaries with the reference's keys: ``embed``,
 ``final_norm``, ``lm_head`` (untied only) and ``layers``, one block
-dictionary per layer.  The reference stacks identical blocks and scans
-over them (``params["stages"][0]["b0"]`` with a leading axis of
-n_layers); here that scan is a Python loop over ``layers``, and
+dictionary per layer, layer i of kind ``cfg.pattern[i]``.  The
+reference stacks each stage's units and scans over them
+(``params["stages"][s]["b{j}"]`` with a leading axis of the stage's
+repeats); here that scan is a Python loop over ``layers``, and
 ``convert.lm_params`` unstacks the reference's tree.  Caches are a list
 with one cache per layer: a ``KVCache`` for an attention block, written
-in place, or an ``ssm.SSMState`` for a Mamba-2 block, replaced by the
-new state at each call.
+in place (a ring of min(length, window) slots when ``cfg.window > 0``),
+or the fixed-size state of a recurrent block (``ssm.SSMState``,
+``rglru.LRUState``), replaced by the new state at each call.
 
 Four entry points, as the reference's:
   forward_lm   -- full-sequence logits (+ an aux loss of 0)
@@ -17,10 +18,13 @@ Four entry points, as the reference's:
   decode_step  -- one token against the caches
   lm_loss      -- the next-token cross-entropy (training)
 
-Two block kinds run: ``attn`` (the dense decoder) and ``ssm`` (Mamba-2,
-``models/ssm.py``; no positions, an aux loss of 0).  The ``moe`` and
-``rglru`` kinds, MLA, M-RoPE and the sliding-window ring cache raise
-``NotImplementedError`` (ROADMAP.md).
+Three block kinds run: ``attn`` (the dense decoder, local attention
+when ``cfg.window > 0``), ``ssm`` (Mamba-2, ``models/ssm.py``; no
+positions, an aux loss of 0) and ``rglru`` (the Griffin recurrent block
+with its MLP, ``models/rglru.py``), in any pattern of units and stages
+(``recurrentgemma_9b``: (rglru, rglru, attn) x 12, then (rglru,
+rglru)).  The ``moe`` kind, MLA, M-RoPE and the encoder-decoder family
+raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import attention as attn
+from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import dense, dense_init, embed, embed_init, mlp, mlp_init, \
@@ -45,7 +50,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 #: the block kinds the port runs
-PORTED_KINDS = frozenset(("attn", "ssm"))
+PORTED_KINDS = frozenset(("attn", "ssm", "rglru"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -59,8 +64,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise attn._not_ported(f"attention kind {cfg.attn_kind!r}")
     if cfg.mrope_sections:
         raise attn._not_ported("M-RoPE")
-    if cfg.window > 0:
-        raise attn._not_ported("the sliding-window ring cache")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +82,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     if kind == "ssm":
         return {"norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
                 "ssm": ssm_mod.ssm_init(gen, cfg, dt)}
+    if kind == "rglru":
+        return {"norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
+                "rglru": rglru_mod.rglru_init(gen, cfg, dt),
+                "norm2": norm_init(cfg.norm_kind, d, dt, gen.device),
+                "mlp": mlp_init(gen, d, cfg.d_ff, dt, cfg.act)}
     return {
         "norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
         "attn": attn.attn_init(gen, cfg, dt),
@@ -99,7 +107,11 @@ def block_forward(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     h = norm_apply(cfg.norm_kind, p["norm1"], x, eps)
     if kind == "ssm":
         return x + ssm_mod.ssm_forward(cfg, p["ssm"], h)[0], _zero_aux(x)
-    x = x + attn.gqa_forward(cfg, p["attn"], h, positions, window=cfg.window)
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_forward(cfg, p["rglru"], h)[0]
+    else:
+        x = x + attn.gqa_forward(cfg, p["attn"], h, positions,
+                                 window=cfg.window)
     h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
     return x + mlp(p["mlp"], h, cfg.act), _zero_aux(x)
 
@@ -107,26 +119,38 @@ def block_forward(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 def block_cache_init(cfg: ModelConfig, kind: str, B: int, length: int,
                      dtype, device=None):
     _check_kind(kind)
-    if kind == "ssm":       # a fixed-size state, whatever the length
+    # a recurrent block's state has a fixed size, whatever the length
+    if kind == "ssm":
         return ssm_mod.init_ssm_state(cfg, B, dtype, device)
-    if cfg.window > 0:
-        raise attn._not_ported("the sliding-window ring cache")
-    return attn.init_kv_cache(cfg, B, length, dtype, device)
+    if kind == "rglru":
+        return rglru_mod.init_lru_state(cfg, B, dtype, device)
+    L = min(length, cfg.window) if cfg.window > 0 else length
+    return attn.init_kv_cache(cfg, B, L, dtype, device)
 
 
 def _fill_kv_cache(cfg: ModelConfig, cache: attn.KVCache, kv,
                    S: int) -> attn.KVCache:
     """Write the prefill's keys and values into slots 0 .. S-1, in
-    place; the other slots are marked empty."""
+    place; the other slots are marked empty.  A ring (``cfg.window >
+    0``) shorter than the prompt keeps its last L tokens, token p in
+    slot p % L: two slice copies of a rotation."""
     k, v = kv                                   # (B, S, K, hd)
     L = cache.length
-    if cfg.window > 0:
-        raise attn._not_ported("the sliding-window ring cache")
+    dev = cache.slot_pos.device
+    if cfg.window > 0 and S > L:
+        r = S % L                               # the slot of token S - L
+        for dst, src in ((cache.k, k), (cache.v, v)):
+            src = src[:, S - L:].to(dst.dtype)
+            dst[:, r:] = src[:, :L - r]
+            dst[:, :r] = src[:, L - r:]
+        slots = torch.arange(L, dtype=torch.int32, device=dev)
+        cache.slot_pos.copy_((slots - r) % L + (S - L))
+        return cache
     if S > L:
         raise ValueError(f"prefill of {S} tokens into a cache of {L} slots")
     cache.k[:, :S] = k.to(cache.k.dtype)
     cache.v[:, :S] = v.to(cache.v.dtype)
-    pos = torch.arange(L, dtype=torch.int32, device=cache.slot_pos.device)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)
     cache.slot_pos.copy_(torch.where(pos < S, pos, torch.full_like(pos, -1)))
     return cache
 
@@ -142,9 +166,12 @@ def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
     if kind == "ssm":
         y, state = ssm_mod.ssm_forward(cfg, p["ssm"], h, cache)
         return x + y, state, _zero_aux(x)
-    a, kv = attn.gqa_forward(cfg, p["attn"], h, positions, window=cfg.window,
-                             return_kv=True)
-    cache = _fill_kv_cache(cfg, cache, kv, S)
+    if kind == "rglru":
+        a, cache = rglru_mod.rglru_forward(cfg, p["rglru"], h, cache)
+    else:
+        a, kv = attn.gqa_forward(cfg, p["attn"], h, positions,
+                                 window=cfg.window, return_kv=True)
+        cache = _fill_kv_cache(cfg, cache, kv, S)
     x = x + a
     h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
     return x + mlp(p["mlp"], h, cfg.act), cache, _zero_aux(x)
@@ -157,8 +184,11 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
     if kind == "ssm":
         y, state = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
         return x_t + y, state
-    a, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache,
-                               window=cfg.window)
+    if kind == "rglru":
+        a, cache = rglru_mod.rglru_decode(cfg, p["rglru"], h, cache)
+    else:
+        a, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache,
+                                   window=cfg.window)
     x_t = x_t + a
     h = norm_apply(cfg.norm_kind, p["norm2"], x_t, eps)
     return x_t + mlp(p["mlp"], h, cfg.act), cache
@@ -223,7 +253,7 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor,
             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy over the true vocab, mean per token, plus the aux
-    loss (0 for the dense and SSM families).  The padded vocab columns are masked
+    loss (0 for every ported family).  The padded vocab columns are masked
     by an additive bias fused into the float32 upcast; with ``embeds``
     only the trailing ``labels.shape[1]`` positions count.
 
@@ -252,8 +282,9 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_caches(cfg: ModelConfig, B: int, length: int, dtype=None,
                 device=None) -> list:
-    """One empty cache per layer (an SSM layer's does not depend on
-    ``length``)."""
+    """One empty cache per layer, in pattern order (a recurrent layer's
+    does not depend on ``length``; a windowed attention layer's holds
+    min(length, window) slots)."""
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
     return [block_cache_init(cfg, kind, B, length, dt, device)

@@ -1193,3 +1193,133 @@ def test_flash_at_the_dense_configs_head_layouts(arch, cuda):
     assert len(seen) == cfg.n_layers and seen[0][2] == full.n_heads
     a, b = (x[..., :cfg.vocab].float() for x in (got, want))
     assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The RG-LRU hybrid, the sliding-window ring cache and the autotuner
+# ---------------------------------------------------------------------------
+
+
+def _loop64(a, b, r):
+    """h_t = a_t h_{t-1} + b_t in float64 step by step, and the
+    gradients of sum(h * r) with respect to a and b by its adjoint."""
+    S = a.shape[1]
+    a, b, r = a.double(), b.double(), r.double()
+    h = torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    gh = torch.zeros_like(h)
+    ga, gb = torch.zeros_like(a), torch.zeros_like(b)
+    for t in reversed(range(S)):
+        gh = gh + r[:, t]
+        gb[:, t] = gh
+        if t:
+            ga[:, t] = gh * hs[t - 1]
+        gh = gh * a[:, t]
+    return torch.stack(hs, 1), ga, gb
+
+
+@pytest.mark.cuda
+def test_rglru_scan_at_full_width_matches_a_float64_loop(cuda):
+    """``recurrentgemma_9b``'s width (W 4096) at the trainer's length
+    (S 2,304): the scan and its gradients with respect to a and b, each
+    within 1e-5 of the largest float64 value."""
+    from repro_torch.models import rglru
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    S, W = 2304, 4096
+    a = 0.9 + 0.1 * torch.rand((1, S, W), generator=gen, device=cuda)
+    b = torch.randn((1, S, W), generator=gen, device=cuda)
+    r = torch.randn((1, S, W), generator=gen, device=cuda)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    h = rglru._scan(a, b)
+    ga, gb = torch.autograd.grad((h * r).sum(), (a, b))
+    want = _loop64(a.detach(), b.detach(), r)
+    for got, w, name in zip((h.detach(), ga, gb), want, ("h", "da", "db")):
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got.double() - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_ring_decode_at_full_width_matches_the_windowed_forward(cuda):
+    """One layer of each kind of ``recurrentgemma_9b`` at full width
+    (d 4096, 16 heads over 1 kv head of 256, window 2048, float32): a
+    2,100-token prefill (the ring path) and 6 teacher-forced decode
+    steps, each within 2e-2 of the largest logit of one windowed full
+    forward (tests/test_decode.py:37); no kernel launched."""
+    cfg = get_config("recurrentgemma_9b").with_(n_layers=3, dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    n, steps = 2100, 6
+    tokens = torch.randint(0, cfg.vocab, (1, n + steps),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        full = api.forward(params, {"tokens": tokens})[0][..., :cfg.vocab]
+        caches = api.init_caches(1, n + steps + 8, device=cuda)
+        assert caches[2].length == 2048
+        logits, caches = api.prefill(params, {"tokens": tokens[:, :n]},
+                                     caches)
+        for step in range(steps + 1):
+            pos = n - 1 + step
+            want = full[:, pos]
+            got = logits[:, -1, :cfg.vocab]
+            assert float((got - want).abs().max()) <= \
+                2e-2 * float(want.abs().max()), step
+            if step < steps:
+                logits, caches = api.decode(
+                    params, caches, tokens[:, pos + 1:pos + 2], pos + 1)
+    assert sorted(caches[2].slot_pos.tolist()) == list(
+        range(n + steps - 2048, n + steps))
+    assert not ops.LAUNCH_COUNTS
+
+
+@pytest.mark.cuda
+def test_every_autotune_candidate_is_bitwise_the_default(cuda):
+    """Each op at a few shapes: every candidate's output bitwise the
+    default geometry's; a search with ``measure`` caches its choice and
+    a second resolution is a hit that compiles nothing."""
+    from repro_torch.kernels import autotune
+    from repro_torch.telemetry import CompileCounter
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    autotune.clear_cache()
+    try:
+        for M, D in ((1, 2048), (16, 2048), (64, 2048), (100, 33), (24, 5000)):
+            X, W, b = randn(M, 18), randn(D, 18), randn(D)
+            default = rff.rff(X, W, b)
+            for rows, cols in autotune.candidates_for("rff", (M, D)):
+                got = rff.rff(X, W, b, block_m=rows, block_d=cols)
+                assert torch.equal(got, default), (M, D, rows)
+        for N in (1, 130, 1024, 1025):
+            X, SV, A = randn(4, 18), randn(4, N, 18), randn(4, N)
+            default = fused.sv_predict(X, SV, A, gamma=0.05)
+            for (chunk,) in autotune.candidates_for("sv_predict", (N, 18)):
+                assert torch.equal(fused.sv_predict(X, SV, A, gamma=0.05,
+                                                    block_n=chunk), default)
+        X, W, b = randn(64, 18), randn(2048, 18), randn(2048)
+
+        def measure(blocks):
+            return rff.rff(X, W, b, block_m=blocks[0], block_d=blocks[1])
+
+        autotune.clear_cache()      # the calls above cached the defaults
+        blocks = autotune.tuned_blocks("rff", (64, 2048), kind="d=18",
+                                       measure=measure)
+        choice = autotune.cache_info()[("rff", (64, 2048), "float32",
+                                        "d=18")]
+        assert choice.source == "search" and len(choice.times_ms) == 4
+        with CompileCounter() as c:
+            assert autotune.tuned_blocks("rff", (64, 2048), kind="d=18",
+                                         measure=measure) == blocks
+        assert c.compiles == 0
+    finally:
+        autotune.clear_cache()

@@ -116,7 +116,7 @@ non-zero with no result line:
    mini_batch 5 and the row with the most syncs) their solo
    ``engine.run``; every grid equals ``backend="reference"`` on the
    card in sync rounds and bytes, floats within the parity pair, and a
-   profiled repeat bitwise; the SV sweep peaks under 1 GiB.  Before
+   repeat bitwise; the SV sweep peaks under 1 GiB.  Before
    the runs, ``slice_shapes`` times the kernels at these shapes:
    ``sv_predict`` at B = 256, the grouped check (8 configs' 2m + 1
    forms of 1024^2 in one launch, each bitwise its own launch), the
@@ -132,9 +132,8 @@ non-zero with no result line:
    learners under churn (``PopulationSpec(m_total=32, sample_rate=0.8,
    seed=3)``, T = 1000) under ``sv_dynamic``'s and ``sv_periodic``'s
    protocols, each against ``backend="reference"``: equal sync rounds,
-   bytes and rejoin bytes, floats within the parity pair, a profiled
-   repeat bitwise, an all-True mask bitwise its phase 3 run, peak under
-   1 GiB.
+   bytes and rejoin bytes, floats within the parity pair, a repeat
+   bitwise, an all-True mask bitwise its phase 3 run, peak under 1 GiB.
 
 10. ``mesh``: ``launch.mesh.make_learner_mesh(devices=["cuda:0"] * n)``
    on phase 3's learners and stream, the shards on the one card:
@@ -143,9 +142,9 @@ non-zero with no result line:
    ``mesh_linear_periodic`` at 4 (m = 1024, 256 a shard), each bitwise
    its phase 3 run in every field (the SV runs peaking under 1 GiB);
    ``mesh_sv_dynamic`` again under ``topology="allreduce"`` (the same
-   sync rounds, each at the ring bytes) and a profiled bitwise repeat
-   (the card's busy share, launches a shard); ``engine.sweep(mesh=)`` on
-   the RFF sweep's grid (each row bitwise the single-device sweep's,
+   sync rounds, each at the ring bytes) and a bitwise repeat (the
+   card's busy share from a window, launches a shard);
+   ``engine.sweep(mesh=)`` on the RFF sweep's grid (each row bitwise the single-device sweep's,
    one step launch a shard a round); ``run_population(mesh=)`` at
    10^5 linear learners and sample rate 0.5 (bitwise the single-device
    masked run, bytes equal to the closed-form Sec. 3 oracle);
@@ -158,7 +157,7 @@ non-zero with no result line:
    B = 8 and the linear step at B = 256.
 11. ``oracle``: ``simulation.run_kernel_simulation`` at ``sv_dynamic``'s
    config and ``run_linear_simulation`` at ``linear_periodic``'s on the
-   card: sync rounds and bytes equal to phase 3's runs, losses and
+   card (in the second process, beside phase 7's linear repeat): sync rounds and bytes equal to phase 3's runs, losses and
    compression errors within the parity pair; the SV oracle's plain
    compression builds the (m tau)^2 Gram, whose peak is reported.
 12. ``train``: the LM protocol trainer (``launch.train``) with
@@ -237,6 +236,43 @@ non-zero with no result line:
    ``input_specs``' shapes, no ``flash`` launch; the trainer at full
    width and depth cut to 3 layers, m = 2 x 2,304 tokens, periodic
    (period 2) and dynamic, T = 4, under phase 12's checks.
+16. ``lm_vlm``: ``qwen2_vl_2b`` at full width and depth (28 layers, d
+   1536, 12 heads over 2 kv heads of 128, M-RoPE sections (16, 24, 24),
+   bf16, ``use_flash=True``; 1,543,910,912 parameters; weights drawn on
+   the card from seed 0 after phase 15 freed its own): at batch 4, each
+   sample 1,024 seeded patch embeddings and 300 tokens (S 1,324), the
+   model API's prefill and 16 greedy decode steps at positions 1,324
+   onward (``LMServingEngine.run``'s loop: the engine takes no
+   ``embeds``), one ``flash`` launch a layer, every flash layer within 2
+   bf16 ulps (plus 2e-5) of ``_sdpa`` on its own M-RoPE-rotated q, k, v,
+   a repeat bitwise in tokens and logits, then timed with deterministic
+   algorithms off (tokens per wall second, prefill seconds, ms a decode
+   step, device activities a decode step, peak memory); ``flash`` timed
+   at that prefill's shape (the ``flash`` entry's ``lm_vlm_shapes``);
+   one full-width layer's ``gqa_forward`` with distinct streams
+   (positions (3, 1, 1,324)) on the card against the CPU in float32;
+   the same weights in float32, the prefix and 300 tokens prefilled and
+   16 teacher-forced decode steps within 2e-2 of the largest logit of
+   one full forward; the trainer at full width cut to 4 layers, m = 2 x
+   (1,024 embeddings + 256 tokens), periodic (period 2) and dynamic, T
+   = 4, under phase 12's checks.
+17. ``lm_mla``: ``minicpm3_4b`` at full width and depth (62 layers, d
+   2560, 40 heads, MLA with q_lora 768, kv_lora 256, nope 64, rope 32,
+   v 64, bf16; 4,073,937,408 parameters; weights from seed 0 after phase
+   16 freed its own): ``LMServingEngine`` at batch 4 on prompts of 1,024,
+   700, 333 and 64 tokens, 32 new tokens, under ``_serve_checked`` (a
+   repeat bitwise, no kernel of the port launched); the latent cache's
+   576 B a token a layer beside a 40-head K/V cache's 12,800 B; the
+   same weights in float32, a 1,024-token prefill and 16 teacher-forced
+   decode steps within 2e-2 of one full forward, the first step's
+   absorbed decode in every layer within rtol 1e-4, atol 1e-5 of the
+   naive one; the trainer at full width cut to 3 layers, m = 2 x 1,024
+   tokens, periodic and dynamic, T = 4, under phase 12's checks.
+
+Every run phase reads the card's busy share and top kernels over a
+window, the run's first twentieth of rounds run again unprofiled for its
+wall time and profiled for its device time (``busy_window`` on the
+line); its bitwise repeat runs unprofiled.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary (with each kernel's ``slice_shapes`` and
@@ -259,6 +295,7 @@ import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
+import types  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -1329,13 +1366,163 @@ def _port_seconds(by_kernel) -> dict:
     return dict(out)
 
 
+# ---------------------------------------------------------------------------
+# The reference-backend runs of phases 3, 4, 7, 8 and 9, in a second process
+# ---------------------------------------------------------------------------
+
+
+class _ReferenceRuns:
+    """One spawned process, with a CUDA context of its own, that runs
+    the reference-backend run of each run of phases 3, 4, 7, 8 and 9
+    while this process runs the same run's bitwise repeat: two checks of
+    one run, whose seconds the script paid one after the other (the
+    async phase's reference runs took 61.5 s, its repeats 94.3 s more
+    on an H100 80GB HBM3 at 700 W, by ``smoke_parts.py``).  A job
+    rebuilds its run's inputs from the same seeds and configs and
+    returns the result with its own wall seconds and peak memory, taken
+    beside the repeat
+    (``reference_beside_repeat`` on the line).  Each timed run and busy
+    window runs before its job is submitted.  Phase 11's serial oracle
+    runs there too, beside the repeat of the one run of these phases
+    with no reference run (``async_linear_periodic``).  The process
+    starts before the kernel build and is closed after phase 11."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_reference_init, initargs=(str(ROOT / "src"),))
+        self.ready = self.pool.submit(_reference_ready)
+        self.early: dict = {}
+
+    def submit(self, job, *args):
+        self.ready.result()
+        return self.pool.submit(job, *args)
+
+    def start_early(self, job, *args) -> None:
+        """Submit now a job whose result a later phase reads
+        (``result_of``): beside a repeat that has no reference run of its
+        own."""
+        self.early[job.__name__, args] = self.submit(job, *args)
+
+    def settle(self) -> None:
+        """Wait for the early jobs, before the next timed run."""
+        for fut in self.early.values():
+            fut.exception()
+
+    def result_of(self, job, *args):
+        fut = self.early.pop((job.__name__, args), None)
+        return (fut or self.submit(job, *args)).result()
+
+    def close(self) -> None:
+        self.pool.shutdown()
+
+
+def _reference_init(src: str) -> None:
+    sys.path.insert(0, src)
+    torch.use_deterministic_algorithms(True)
+
+
+def _reference_ready() -> str:
+    torch.zeros(1, device="cuda")
+    return torch.cuda.get_device_name(0)
+
+
+def _timed_reference(fn) -> tuple:
+    """(fn's value, its wall s, its peak device bytes) in this process."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return out, secs, peak
+
+
+def _reference_e2e(name: str) -> tuple:
+    from repro_torch.core import engine
+    from repro_torch.data.streams import susy_stream
+    _, learner, m, pcfg, _ = next(c for c in e2e_configs() if c[0] == name)
+    X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+    return _timed_reference(lambda: engine.run(
+        learner, pcfg, X, Y, backend="reference", device="cuda"))
+
+
+def _reference_serve(name: str) -> tuple:
+    """The reference serving run, and its answers (``_answers``)."""
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.serving import (KernelServingEngine, make_arrivals,
+                                     serve_stream)
+    _, e2e, _, arrival, kw = next(c for c in serve_configs()
+                                  if c[0] == name)
+    _, learner, m, pcfg, _ = next(c for c in e2e_configs() if c[0] == e2e)
+    X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+    arrivals = make_arrivals(arrival, rate=SERVE_RATE, seed=0)
+    with _Instrumented(KernelServingEngine) as inst:
+        out = _timed_reference(lambda: serve_stream(
+            learner, pcfg, X, Y, arrivals=arrivals, backend="reference",
+            device="cuda", **kw))
+    return out + (_answers(inst.engines[0]),)
+
+
+def _reference_async(name: str) -> tuple:
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.runtime import run_async_simulation
+    _, learner, m, T, acfg, sys_cfg, _, _ = next(
+        c for c in async_configs() if c[0] == name)
+    X, Y = (a[:T] for a in susy_stream(T_ROUNDS, m, d=D_IN, seed=0))
+    return _timed_reference(lambda: run_async_simulation(
+        learner, acfg, X, Y, backend="reference", sys_cfg=sys_cfg,
+        record_divergence=False, device="cuda"))
+
+
+def _reference_sweep(name: str) -> tuple:
+    from repro_torch.core import engine
+    from repro_torch.data.streams import susy_stream
+    _, learner, m, grid, _, _ = next(c for c in sweep_configs()
+                                     if c[0] == name)
+    X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+    return _timed_reference(lambda: engine.sweep(
+        learner, grid, X, Y, backend="reference", device="cuda"))
+
+
+def _reference_oracle(name: str) -> tuple:
+    """Phase 11's serial oracle run ``name`` (``ORACLE_RUNS``)."""
+    from repro_torch.core import simulation
+    from repro_torch.data.streams import susy_stream
+    e2e, T, fn = ORACLE_RUNS[name]
+    _, learner, m, pcfg, _ = next(c for c in e2e_configs() if c[0] == e2e)
+    X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+    return _timed_reference(lambda: getattr(simulation, fn)(
+        learner, pcfg, X[:T], Y[:T], device="cuda"))
+
+
+def _reference_churn(e2e: str) -> tuple:
+    """``_sv_churn``'s reference run, and its rejoin downloads."""
+    from repro_torch.core import substrate
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.kernels import ops
+    _, sv, m, pcfg, _ = next(c for c in e2e_configs() if c[0] == e2e)
+    X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
+    rejoins: list = []
+    sub = _rejoin_logged(substrate.substrate_of(sv, backend="reference"),
+                         rejoins)
+    want, secs, _, peak = _timed_population(
+        ops, {}, (), e2e, _churn_spec(m), sub, pcfg, X, Y)
+    torch.cuda.empty_cache()
+    return want, secs, peak, rejoins
+
+
 #: phase 3's rounds per wall second, by run (the sweeps' solo rates)
 RATES: dict = {}
+#: a run's busy share is read over its first 1 / BUSY_WINDOW_DIV rounds
+BUSY_WINDOW_DIV = 20
 
 
-def run_e2e(ops, totals, runs):
-    from torch.profiler import ProfilerActivity, profile
-
+def run_e2e(ops, totals, runs, refs):
     from repro_torch.core import engine, substrate
     from repro_torch.data.streams import susy_stream
 
@@ -1356,23 +1543,19 @@ def run_e2e(ops, totals, runs):
         if name.startswith("sv_"):
             # the sync compresses through quadform: no (m tau)^2 Gram
             assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        want = engine.run(learner, pcfg, X, Y, backend="reference",
-                          device="cuda")
-        torch.cuda.synchronize()
-        ref_secs = time.perf_counter() - t0
-        ref_peak = torch.cuda.max_memory_allocated()
-        # the repeat records the distances its checks compare with delta,
-        # and the device time of every CUDA kernel it launches
+        # the device time of every CUDA kernel comes from a window; then
+        # the reference run in the second process, beside the repeat,
+        # which records the distances its checks compare with delta
+        K = _window(T_ROUNDS)
+        by_kernel, busy = _busy_window(lambda: engine.run(
+            learner, pcfg, X[:K], Y[:K], backend="kernels", device="cuda"),
+            K, T_ROUNDS)
+        reference = refs.submit(_reference_e2e, name)
         dists: list = []
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = engine.run(
-                _recording(substrate.substrate_of(learner, backend="kernels"),
-                           dists), pcfg, X, Y, device="cuda")
-            torch.cuda.synchronize()
-        by_kernel = _device_seconds(prof)
-        device_s = sum(by_kernel.values())
+        again = engine.run(
+            _recording(substrate.substrate_of(learner, backend="kernels"),
+                       dists), pcfg, X, Y, device="cuda")
+        want, ref_secs, ref_peak = reference.result()
         check = {}
         if pcfg.kind == "dynamic":
             d = np.concatenate(dists)
@@ -1404,16 +1587,16 @@ def run_e2e(ops, totals, runs):
               "kernel_launches": counts,
               "rounds_per_s": T_ROUNDS / secs,
               "reference_rounds_per_s": T_ROUNDS / ref_secs,
+              "reference_beside_repeat": True,
               "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
               "total_loss": got.total_loss,
               "reference_total_loss": want.total_loss,
               "error_rate": float(got.cumulative_errors[-1]) / (T_ROUNDS * m),
               "max_memory_allocated": peak,
               "reference_max_memory_allocated": ref_peak,
-              # device busy share: kernel time of the (profiled) repeat
-              # over the wall time of the unprofiled kernel run
-              "device_s": device_s, "device_busy_share": device_s / secs,
-              "top_kernels_s": dict(by_kernel.most_common(5)),
+              # device busy share: kernel time of the profiled window over
+              # the wall time of the same window unprofiled
+              **busy, "top_kernels_s": dict(by_kernel.most_common(5)),
               "port_kernels_s": _port_seconds(by_kernel), **check})
 
 
@@ -1581,10 +1764,8 @@ def check_rows_below_threshold(dev, gen) -> None:
           "predict_batch_vs_plain_max_abs_err": out})
 
 
-def run_serving(ops, totals, runs) -> dict:
+def run_serving(ops, totals, runs, refs) -> dict:
     """Returns each run's launches by bucket size."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.data.streams import susy_stream
     from repro_torch.serving import (KernelServingEngine, make_arrivals,
                                      serve_stream)
@@ -1621,18 +1802,23 @@ def run_serving(ops, totals, runs) -> dict:
         # the protocol view is phase 3's engine.run, bitwise
         _assert_same_sim(got.sim, runs[e2e_name], name)
         assert got.rounds == T_ROUNDS and got.num_requests > 0
+        K = _window(T_ROUNDS)
+        by_kernel, busy = _busy_window(lambda: serve_stream(
+            learner, pcfg, X[:K], Y[:K], arrivals=arrivals,
+            backend="kernels", device="cuda", **kw), K, T_ROUNDS)
 
-        with _Instrumented(KernelServingEngine) as ref_inst:
-            t0 = time.perf_counter()
-            want = serve_stream(learner, pcfg, X, Y, arrivals=arrivals,
-                                backend="reference", device="cuda", **kw)
-            torch.cuda.synchronize()
-            ref_secs = time.perf_counter() - t0
+        # the reference backend's run in the second process, beside the
+        # repeat
+        reference = refs.submit(_reference_serve, name)
+        again = serve_stream(learner, pcfg, X, Y, arrivals=arrivals,
+                             backend="kernels", device="cuda", **kw)
+        _assert_same_sim(got.sim, again.sim, f"{name} repeat")
+        _assert_same_serving_face(got, again, f"{name} repeat")
+        want, ref_secs, ref_peak, (ref_uids, ref_yhat) = reference.result()
         _assert_same_serving_face(got, want, f"{name} vs reference backend")
         # the answers: the same requests served, each prediction within
         # the parity pair of the reference backend's
-        (uids, yhat), (ref_uids, ref_yhat) = (
-            _answers(eng), _answers(ref_inst.engines[0]))
+        uids, yhat = _answers(eng)
         assert np.array_equal(uids, ref_uids), f"{name}: served requests"
         assert len(yhat) == got.num_requests and np.all(np.isfinite(yhat))
         np.testing.assert_allclose(yhat, ref_yhat, rtol=PARITY_RTOL,
@@ -1646,14 +1832,6 @@ def run_serving(ops, totals, runs) -> dict:
                                    rtol=PARITY_RTOL, atol=PARITY_ATOL,
                                    err_msg=name)
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = serve_stream(learner, pcfg, X, Y, arrivals=arrivals,
-                                 backend="kernels", device="cuda", **kw)
-            torch.cuda.synchronize()
-        _assert_same_sim(got.sim, again.sim, f"{name} repeat")
-        _assert_same_serving_face(got, again, f"{name} repeat")
-        by_kernel = _device_seconds(prof)
-        device_s = sum(by_kernel.values())
         launch_s = np.asarray(inst.launch_s)
         emit({"phase": "serve", "run": name, "m": m, "T": T_ROUNDS,
               "arrivals": arrival, "policy": got.policy,
@@ -1669,11 +1847,12 @@ def run_serving(ops, totals, runs) -> dict:
               "host_ms_per_launch_p50": 1e3 * float(np.median(launch_s)),
               "host_s_in_launches": float(launch_s.sum()),
               "reference_serve_wall_s": ref_secs,
+              "reference_max_memory_allocated": ref_peak,
+              "reference_beside_repeat": True,
               "num_syncs": got.num_syncs, "total_bytes": got.total_bytes,
               "total_loss": got.total_loss,
               "max_memory_allocated": peak,
-              "device_s": device_s, "device_busy_share": device_s / secs,
-              "top_kernels_s": dict(by_kernel.most_common(5)),
+              **busy, "top_kernels_s": dict(by_kernel.most_common(5)),
               "port_kernels_s": _port_seconds(by_kernel),
               "predictions_max_abs_err_vs_reference": float(
                   np.max(np.abs(yhat - ref_yhat))),
@@ -1693,8 +1872,7 @@ def run_serving(ops, totals, runs) -> dict:
 #: the async runs' depths, cut from T_ROUNDS to keep the script inside its
 #: time limit: every node round is one learner's round in the host's
 #: event loop (SV: 16,000 node rounds in each of three runs; linear,
-#: m = 1024: 51,200 in each of two), and the profiled repeat is the
-#: slowest of a run's passes
+#: m = 1024: 51,200 in each of two)
 ASYNC_T_SV = 500
 ASYNC_T_LINEAR = 50
 #: fields of an async run that must be equal across backends: the
@@ -1732,13 +1910,11 @@ def async_configs():
     ]
 
 
-def run_async(ops, totals, runs) -> None:
+def run_async(ops, totals, runs, refs) -> None:
     """``run_async_simulation`` at full width (``async_configs``), each
-    run under ``backend="kernels"``, then (SV, RFF) under
-    ``"reference"`` on the card, then a profiled repeat that must equal
-    the first run bitwise in every field."""
-    from torch.profiler import ProfilerActivity, profile
-
+    run under ``backend="kernels"``, its busy share's window, then (SV,
+    RFF) under ``"reference"`` on the card in the second process beside
+    a repeat that must equal the first run bitwise in every field."""
     from repro_torch.core import accounting, substrate
     from repro_torch.data.streams import susy_stream
     from repro_torch.runtime import run_async_simulation
@@ -1777,16 +1953,31 @@ def run_async(ops, totals, runs) -> None:
             # the aggregate compresses through quadform: no Gram of the
             # 2 n tau slots of its mix (17.2 GB under "reference")
             assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
+        K = _window(T)
+        by_kernel, busy = _busy_window(lambda: run_async_simulation(
+            learner, acfg, X[:K], Y[:K], backend="kernels", **kw), K, T)
+        reference = refs.submit(_reference_async, name) if kernels else None
+        if reference is None:
+            # this run has no reference run: the serial oracle goes beside
+            # its repeat
+            for oracle in ORACLE_RUNS:
+                refs.start_early(_reference_oracle, oracle)
+        # the repeat, its checks' distances recorded
+        dists: list = []
+        sub = _recording(substrate.substrate_of(
+            learner, backend="kernels"), dists)
+        again = run_async_simulation(sub, acfg, X, Y, **kw)
+        refs.settle()
+        for field in dataclasses.fields(got):
+            assert np.array_equal(getattr(got, field.name),
+                                  getattr(again, field.name)), \
+                f"{name}: repeated run differs in {field.name}"
         line = {}
-        if kernels:
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            want = run_async_simulation(learner, acfg, X, Y,
-                                        backend="reference", **kw)
-            torch.cuda.synchronize()
-            line["reference_wall_s"] = time.perf_counter() - t0
-            line["reference_max_memory_allocated"] = \
-                torch.cuda.max_memory_allocated()
+        if reference is not None:
+            want, ref_secs, ref_peak = reference.result()
+            line.update(reference_wall_s=ref_secs,
+                        reference_max_memory_allocated=ref_peak,
+                        reference_beside_repeat=True)
             for field in ASYNC_EQUAL:
                 assert np.array_equal(getattr(got, field),
                                       getattr(want, field)), \
@@ -1806,19 +1997,6 @@ def run_async(ops, totals, runs) -> None:
             assert np.array_equal(got.sync_rounds, np.arange(
                 acfg.period - 1, T, acfg.period, dtype=np.int64)), name
             assert got.total_bytes == got.num_syncs * sync_bytes, name
-        # the repeat: profiled, its checks' distances recorded
-        dists: list = []
-        sub = _recording(substrate.substrate_of(
-            learner, backend="kernels"), dists)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = run_async_simulation(sub, acfg, X, Y, **kw)
-            torch.cuda.synchronize()
-        for field in dataclasses.fields(got):
-            assert np.array_equal(getattr(got, field.name),
-                                  getattr(again, field.name)), \
-                f"{name}: repeated run differs in {field.name}"
-        by_kernel = _device_seconds(prof)
-        device_s = sum(by_kernel.values())
         if acfg.kind == "dynamic":
             d = np.concatenate(dists)
             line.update(checks=len(d), delta=acfg.delta,
@@ -1840,8 +2018,7 @@ def run_async(ops, totals, runs) -> None:
               "mean_staleness": got.mean_staleness,
               "max_staleness": got.max_staleness,
               "max_memory_allocated": peak,
-              "device_s": device_s, "device_busy_share": device_s / secs,
-              "top_kernels_s": dict(by_kernel.most_common(5)),
+              **busy, "top_kernels_s": dict(by_kernel.most_common(5)),
               "port_kernels_s": _port_seconds(by_kernel), **line})
 
 
@@ -1895,13 +2072,12 @@ def _assert_same_result(a, b, label: str) -> None:
             f"{label}: {field} differs"
 
 
-def run_sweeps(ops, totals, runs) -> dict:
+def run_sweeps(ops, totals, runs, refs) -> dict:
     """``engine.sweep`` at full width (``sweep_configs``) under
     ``backend="kernels"``: each anchor row bitwise its solo run, the
-    grid against ``backend="reference"`` on the card, a profiled repeat
-    bitwise.  Returns the SV sweep's grouped check sizes."""
-    from torch.profiler import ProfilerActivity, profile
-
+    busy share's window, the grid against ``backend="reference"`` on
+    the card in the second process beside a repeat bitwise.  Returns the
+    SV sweep's grouped check sizes."""
     from repro_torch.core import engine, substrate
     from repro_torch.data.streams import susy_stream
 
@@ -1948,13 +2124,20 @@ def run_sweeps(ops, totals, runs) -> dict:
                 torch.cuda.synchronize()
                 solo_rates[row] = T_ROUNDS / (time.perf_counter() - t0)
             _assert_same_result(got[row], want, f"{name}[{row}]")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        want = engine.sweep(learner, grid, X, Y, backend="reference",
-                            device="cuda")
-        torch.cuda.synchronize()
-        ref_secs = time.perf_counter() - t0
-        ref_peak = torch.cuda.max_memory_allocated()
+        K = _window(T_ROUNDS)
+        by_kernel, busy = _busy_window(lambda: engine.sweep(
+            learner, grid, X[:K], Y[:K], backend="kernels", device="cuda"),
+            K, T_ROUNDS)
+        reference = refs.submit(_reference_sweep, name)
+        # the repeat: bitwise, its grouped checks recorded
+        dists: list = []
+        sizes: list = []
+        sub = _recording(substrate.substrate_of(learner, backend="kernels"),
+                         dists, sizes)
+        again = engine.sweep(sub, grid, X, Y, device="cuda")
+        for i in range(n):
+            _assert_same_result(got[i], again[i], f"{name}[{i}] repeat")
+        want, ref_secs, ref_peak = reference.result()
         for i in range(n):
             g, w = got[i], want[i]
             assert np.array_equal(g.sync_rounds, w.sync_rounds), (name, i)
@@ -1966,21 +2149,9 @@ def run_sweeps(ops, totals, runs) -> dict:
             np.testing.assert_allclose(g.eps_history, w.eps_history,
                                        rtol=PARITY_RTOL, atol=PARITY_ATOL,
                                        err_msg=f"{name}[{i}]")
-        # the repeat: profiled, bitwise, its grouped checks recorded
-        dists: list = []
-        sizes: list = []
-        sub = _recording(substrate.substrate_of(learner, backend="kernels"),
-                         dists, sizes)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = engine.sweep(sub, grid, X, Y, device="cuda")
-            torch.cuda.synchronize()
-        for i in range(n):
-            _assert_same_result(got[i], again[i], f"{name}[{i}] repeat")
         if name.startswith("sweep_sv"):
             groups = sizes
             assert max(sizes) == n, sizes        # every config due at once
-        by_kernel = _device_seconds(prof)
-        device_s = sum(by_kernel.values())
         runs[name] = got
         RATES[name] = n * T_ROUNDS / secs
         emit({"phase": "sweep", "run": name, "n_configs": n, "m": m,
@@ -1990,14 +2161,14 @@ def run_sweeps(ops, totals, runs) -> dict:
                                     solo_rates.items()},
               "reference_wall_s": ref_secs,
               "reference_config_rounds_per_s": n * T_ROUNDS / ref_secs,
+              "reference_beside_repeat": True,
               "num_syncs": syncs,
               "total_bytes": [got[i].total_bytes for i in range(n)],
               "anchors_bitwise": sorted(solo_rates),
               "grouped_checks": dict(collections.Counter(sizes)),
               "max_memory_allocated": peak,
               "reference_max_memory_allocated": ref_peak,
-              "device_s": device_s, "device_busy_share": device_s / secs,
-              "top_kernels_s": dict(by_kernel.most_common(5)),
+              **busy, "top_kernels_s": dict(by_kernel.most_common(5)),
               "port_kernels_s": _port_seconds(by_kernel)})
         torch.cuda.empty_cache()
     return {"grouped_checks": dict(collections.Counter(groups))}
@@ -2050,14 +2221,35 @@ def _timed_population(ops, totals, kernels, label, *args, **kw):
     return pres, secs, counts, torch.cuda.max_memory_allocated()
 
 
-def _profiled(fn):
-    """(fn's value, device s of its CUDA kernels)."""
+def _busy_window(run, rounds: int, of: int) -> tuple:
+    """The card's busy share over a bounded window, the first ``rounds``
+    of a run's ``of`` rounds: ``run()`` runs that prefix once unprofiled
+    for its wall time and once profiled for the device time of its CUDA
+    activities.  A phase's bitwise repeat runs unprofiled; profiling it
+    whole cost the async phase 226 of its 365 s on an H100 80GB HBM3 at
+    700 W (``smoke_parts.py``).
+    Returns (device s by kernel name, the line's ``device_s``,
+    ``device_busy_share`` and ``busy_window`` fields)."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
+        run()
         torch.cuda.synchronize()
     by_kernel = _device_seconds(prof)
-    return out, sum(by_kernel.values()), by_kernel
+    device_s = sum(by_kernel.values())
+    return by_kernel, {"device_s": device_s,
+                       "device_busy_share": device_s / wall,
+                       "busy_window": {"rounds": rounds, "of": of,
+                                       "wall_s": wall}}
+
+
+def _window(T: int) -> int:
+    """Rounds of a run's busy window: its first twentieth."""
+    return max(1, T // BUSY_WINDOW_DIV)
 
 
 def _population_line(name, pres, secs, counts, peak, **extra) -> None:
@@ -2072,7 +2264,7 @@ def _population_line(name, pres, secs, counts, peak, **extra) -> None:
           "max_memory_allocated": peak, **extra})
 
 
-def run_population_phase(ops, totals, runs) -> None:
+def run_population_phase(ops, totals, runs, refs) -> None:
     """The population layer at bench_population.py's scale and the SV
     learners of phase 3 under churn (see the module docstring)."""
     from repro_torch.core import engine, substrate
@@ -2109,12 +2301,14 @@ def run_population_phase(ops, totals, runs) -> None:
         if rate == 0.5:
             runs[label] = pres
             RATES[label] = POP_T / secs
-            again, device_s, by_kernel = _profiled(lambda: _timed_population(
-                ops, {}, step, label, spec, lin, pcfg, X, Y)[0])
+            again = _timed_population(ops, {}, step, label, spec, lin, pcfg,
+                                      X, Y)[0]
             _assert_same_result(pres.sim, again.sim, f"{label} repeat")
-            extra.update(device_s=device_s,
-                         device_busy_share=device_s / secs,
-                         top_kernels_s=dict(by_kernel.most_common(5)))
+            K = _window(POP_T)
+            by_kernel, busy = _busy_window(lambda: _timed_population(
+                ops, {}, step, label, spec, lin, pcfg, X[:K], Y[:K]), K,
+                POP_T)
+            extra.update(busy, top_kernels_s=dict(by_kernel.most_common(5)))
         if rate == 1.0:
             # the whole population every round: engine.run's result
             _assert_same_result(pres.sim, engine.run(
@@ -2158,21 +2352,39 @@ def run_population_phase(ops, totals, runs) -> None:
     # sv_dynamic's protocol and sv_periodic's, whose syncs always find a
     # cohort
     for e2e in ("sv_dynamic", "sv_periodic"):
-        _sv_churn(ops, totals, runs, e2e)
+        _sv_churn(ops, totals, runs, refs, e2e)
 
 
-def _sv_churn(ops, totals, runs, e2e: str) -> None:
+def _churn_spec(m: int):
+    from repro_torch.population import PopulationSpec
+    return PopulationSpec(m_total=m, sample_rate=0.8, seed=3)
+
+
+def _rejoin_logged(sub, log: list):
+    """``sub`` with every rejoin download's bytes appended to ``log``."""
+    base = type(sub)
+
+    class Logged(base):
+        def rejoin_payload_bytes(self, models, ref, rejoin):
+            b = base.rejoin_payload_bytes(self, models, ref, rejoin)
+            log.append(int(b))
+            return b
+
+    return Logged(**{f.name: getattr(sub, f.name)
+                     for f in dataclasses.fields(sub)})
+
+
+def _sv_churn(ops, totals, runs, refs, e2e: str) -> None:
     """``run_population`` of phase 3's ``e2e`` run under churn
-    (``PopulationSpec(m_total=32, sample_rate=0.8, seed=3)``): kernels
-    against the reference backend, a profiled repeat, an all-True mask
-    against phase 3's run."""
+    (``PopulationSpec(m_total=32, sample_rate=0.8, seed=3)``): kernels,
+    the busy share's window, the reference backend in the second process
+    beside a repeat, an all-True mask against phase 3's run."""
     from repro_torch.core import substrate
     from repro_torch.data.streams import susy_stream
-    from repro_torch.population import PopulationSpec
 
     _, sv, m, pcfg, _ = next(c for c in e2e_configs() if c[0] == e2e)
     X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
-    spec = PopulationSpec(m_total=m, sample_rate=0.8, seed=3)
+    spec = _churn_spec(m)
     label = f"population_{e2e.replace('sv_', 'sv_churn_')}"
     kern = substrate.substrate_of(sv, backend="kernels")
     pres, secs, counts, peak = _timed_population(
@@ -2182,28 +2394,16 @@ def _sv_churn(ops, totals, runs, e2e: str) -> None:
     assert pres.total_rejoins > 0, label
     if pcfg.kind == "periodic":
         assert pres.sim.num_syncs > 0, label
-
-    def rejoin_logged(sub, log):
-        base = type(sub)
-
-        class Logged(base):
-            def rejoin_payload_bytes(self, models, ref, rejoin):
-                b = base.rejoin_payload_bytes(self, models, ref, rejoin)
-                log.append(int(b))
-                return b
-
-        return Logged(**{f.name: getattr(sub, f.name)
-                         for f in dataclasses.fields(sub)})
-
+    K = _window(T_ROUNDS)
+    by_kernel, busy = _busy_window(lambda: _timed_population(
+        ops, {}, (), label, spec, kern, pcfg, X[:K], Y[:K]), K, T_ROUNDS)
+    reference = refs.submit(_reference_churn, e2e)
     kern_rejoins: list = []
-    again, device_s, by_kernel = _profiled(lambda: _timed_population(
-        ops, {}, (), label, spec, rejoin_logged(kern, kern_rejoins), pcfg,
-        X, Y)[0])
+    again = _timed_population(ops, {}, (), label, spec,
+                              _rejoin_logged(kern, kern_rejoins), pcfg, X,
+                              Y)[0]
     _assert_same_result(pres.sim, again.sim, f"{label} repeat")
-    ref_rejoins: list = []
-    want, ref_secs, _, ref_peak = _timed_population(
-        ops, {}, (), label, spec, rejoin_logged(substrate.substrate_of(
-            sv, backend="reference"), ref_rejoins), pcfg, X, Y)
+    want, ref_secs, ref_peak, ref_rejoins = reference.result()
     assert np.array_equal(pres.sim.sync_rounds, want.sim.sync_rounds), label
     assert np.array_equal(pres.sim.cumulative_bytes,
                           want.sim.cumulative_bytes), label
@@ -2224,8 +2424,8 @@ def _sv_churn(ops, totals, runs, e2e: str) -> None:
                      reference_wall_s=ref_secs,
                      reference_total_loss=want.sim.total_loss,
                      reference_max_memory_allocated=ref_peak,
-                     all_true_equals=e2e, device_s=device_s,
-                     device_busy_share=device_s / secs,
+                     reference_beside_repeat=True,
+                     all_true_equals=e2e, **busy,
                      top_kernels_s=dict(by_kernel.most_common(5)),
                      port_kernels_s=_port_seconds(by_kernel))
     torch.cuda.empty_cache()
@@ -2405,12 +2605,15 @@ def run_mesh_phase(ops, totals, runs) -> None:
             assert peak < SV_PEAK_LIMIT, f"{name}: peak memory {peak} B"
         extra = {"bitwise_single_device": True}
         if name == "mesh_sv_dynamic" and shards == MESH_SHARDS:
-            # a profiled repeat: bitwise, the card's busy share
-            again, device_s, by_kernel = _profiled(lambda: engine.run(
-                learner, pcfg, X, Y, backend="kernels", mesh=mesh))
+            # a repeat, bitwise; the card's busy share over a window
+            again = engine.run(learner, pcfg, X, Y, backend="kernels",
+                               mesh=mesh)
             _assert_same_result(again, got, f"{name} repeat")
-            extra.update(device_s=device_s, device_busy_share=device_s / secs,
-                         top_kernels_s=dict(by_kernel.most_common(5)),
+            K = _window(T_ROUNDS)
+            by_kernel, busy = _busy_window(lambda: engine.run(
+                learner, pcfg, X[:K], Y[:K], backend="kernels", mesh=mesh),
+                K, T_ROUNDS)
+            extra.update(busy, top_kernels_s=dict(by_kernel.most_common(5)),
                          port_kernels_s=_port_seconds(by_kernel))
             # the ring topology: the same syncs, each at the ring bytes
             ring, ring_secs, _, _ = timed(
@@ -2534,31 +2737,24 @@ def run_mesh_phase(ops, totals, runs) -> None:
 ORACLE_T_SV = T_ROUNDS
 
 
-def run_oracle_phase(runs) -> None:
+#: phase 11's runs: (phase 3 run, depth, ``core.simulation`` function)
+ORACLE_RUNS = {
+    "oracle_sv_dynamic": ("sv_dynamic", ORACLE_T_SV, "run_kernel_simulation"),
+    "oracle_linear_periodic": ("linear_periodic", T_ROUNDS,
+                               "run_linear_simulation")}
+
+
+def run_oracle_phase(runs, refs) -> None:
     """``simulation.run_kernel_simulation`` at ``sv_dynamic``'s config
     (depth ``ORACLE_T_SV``) and ``run_linear_simulation`` at
-    ``linear_periodic``'s, on the card: sync rounds and bytes equal to
-    phase 3's ``engine.run(backend="kernels")``, losses and compression
-    errors within the parity pair, error counts equal."""
-    from repro_torch.core import simulation
-    from repro_torch.data.streams import susy_stream
-
-    configs = {name: (learner, m, pcfg)
-               for name, learner, m, pcfg, _ in e2e_configs()}
-    for name, e2e, T, fn in (
-            ("oracle_sv_dynamic", "sv_dynamic", ORACLE_T_SV,
-             simulation.run_kernel_simulation),
-            ("oracle_linear_periodic", "linear_periodic", T_ROUNDS,
-             simulation.run_linear_simulation)):
-        learner, m, pcfg = configs[e2e]
-        X, Y = susy_stream(T_ROUNDS, m, d=D_IN, seed=0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        got = fn(learner, pcfg, X[:T], Y[:T], device="cuda")
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+    ``linear_periodic``'s, on the card in the second process (run beside
+    phase 7's ``async_linear_periodic`` repeat; ``run_beside_repeat`` on
+    the line): sync rounds and bytes equal to phase 3's
+    ``engine.run(backend="kernels")``, losses and compression errors
+    within the parity pair, error counts equal."""
+    for name, (e2e, T, _) in ORACLE_RUNS.items():
+        m = next(c[2] for c in e2e_configs() if c[0] == e2e)
+        got, secs, peak = refs.result_of(_reference_oracle, name)
         want = runs[e2e]
         # the engine's first T rounds (a round never reads a later one)
         w_sync = want.sync_rounds[want.sync_rounds < T]
@@ -2589,8 +2785,7 @@ def run_oracle_phase(runs) -> None:
                   got.eps_history - want.eps_history[:len(w_sync)]),
                   initial=0.0)),
               "errors_equal": errs_equal,
-              "max_memory_allocated": peak})
-        torch.cuda.empty_cache()
+              "max_memory_allocated": peak, "run_beside_repeat": True})
 
 
 # ---------------------------------------------------------------------------
@@ -2775,22 +2970,27 @@ def _steps(prof) -> list:
     """A served run's device timeline cut at each read back of the next
     tokens (a Memcpy DtoH; the engine reads once per step).  Per step:
     its kernels, their device seconds, the span from the previous read
-    back's end to this one's, and whether ``flash`` ran (a prefill)."""
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    back's end to this one's, and whether ``flash`` ran (a prefill).
+    Read from the profiler's own event records, as ``_device_seconds``
+    (``prof.events()`` took the host 16 to 39 s a served run's profile,
+    four times its run, on an H100 80GB HBM3 host at 700 W, by
+    ``smoke_parts.py``)."""
+    evs = sorted((e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.start_ns())
     steps, cur, last_end = [], [], None
     for e in evs:
-        if "DtoH" in e.name:
+        name = e.name()
+        if "DtoH" in name:
             start = last_end if last_end is not None else (
-                cur[0].time_range.start if cur else e.time_range.start)
+                cur[0].start_ns() if cur else e.start_ns())
             steps.append({
                 "kernels": len(cur),
-                "device_s": sum(x.time_range.elapsed_us() for x in cur) / 1e6,
-                "span_s": (e.time_range.end - start) / 1e6,
-                "flash": any("flash" in x.name for x in cur)})
-            cur, last_end = [], e.time_range.end
-        elif "Memcpy" not in e.name and "Memset" not in e.name:
+                "device_s": sum(x.duration_ns() for x in cur) / 1e9,
+                "span_s": (e.end_ns() - start) / 1e9,
+                "flash": any("flash" in x.name() for x in cur)})
+            cur, last_end = [], e.end_ns()
+        elif "Memcpy" not in name and "Memset" not in name:
             cur.append(e)
     return steps
 
@@ -3892,8 +4092,6 @@ DENSE_LONG_STEPS = 32
 DENSE_LONG_CACHE_BYTES_F32 = 302_579_712
 LONG_TRAIN_LAYERS = 3             # one (rglru, rglru, attn) unit
 LONG_TRAIN_SEQ = 2304             # 2048 + 256: the window cuts the mask
-LONG_TRAIN_T = 4
-LONG_TRAIN_PERIOD = 2
 LONG_TRAIN_PARAMS = 1_705_078_784
 LONG_TRAIN_MODEL_BYTES = 3_410_173_952
 
@@ -3920,32 +4118,37 @@ class _RingWatch:
 
 
 def _f32_against_full(api, params, tokens, prompt, steps, length,
-                      label) -> dict:
-    """Prefill ``prompt`` tokens, then ``steps`` teacher-forced decode
-    steps; each step's logits within ``LOGIT_TOL`` of the largest logit
-    of one full forward at that position (tests/test_decode.py:37).
-    Returns the worst error and the caches' leaves."""
+                      label, embeds=None) -> dict:
+    """Prefill ``prompt`` tokens (after ``embeds``, a VLM's prefix, when
+    given), then ``steps`` teacher-forced decode steps; each step's
+    logits within ``LOGIT_TOL`` of the largest logit of one full forward
+    at that position (tests/test_decode.py:37).  Returns the worst error
+    and the caches' leaves."""
     from repro_torch.tree import leaves
 
     vocab = api.cfg.vocab
+    prefix = {} if embeds is None else {"embeds": embeds}
+    extra = 0 if embeds is None else embeds.shape[1]
     caches = api.init_caches(tokens.shape[0], length)
     with torch.no_grad():
-        full = api.forward(params, {"tokens": tokens})[0][..., :vocab]
+        full = api.forward(params, {"tokens": tokens, **prefix})[0][
+            ..., :vocab]
         logits, caches = api.prefill(
-            params, {"tokens": tokens[:, :prompt]}, caches)
+            params, {"tokens": tokens[:, :prompt], **prefix}, caches)
         worst = 0.0
         for step in range(steps + 1):
             pos = prompt - 1 + step
-            got, want = logits[:, -1, :vocab], full[:, pos]
+            got, want = logits[:, -1, :vocab], full[:, extra + pos]
             rel = float((got - want).abs().max() / want.abs().max())
             assert rel <= LOGIT_TOL, \
                 f"{label}: float32 step {step} is {rel} of the largest logit"
             worst = max(worst, rel)
             if step < steps:
                 logits, caches = api.decode(
-                    params, caches, tokens[:, pos + 1:pos + 2], pos + 1)
+                    params, caches, tokens[:, pos + 1:pos + 2],
+                    extra + pos + 1)
     del full
-    return {"prompt": prompt, "decode_steps": steps,
+    return {"prompt": prompt, "prefix": extra, "decode_steps": steps,
             "max_rel_logit_err": worst, "tol": LOGIT_TOL,
             "cache_bytes": sum(x.numel() * x.element_size()
                                for x in leaves(caches))}, caches
@@ -4073,83 +4276,28 @@ def _dense_long(ops, dev) -> dict:
 def _long_train(ops, dev) -> dict:
     """The trainer at ``recurrentgemma_9b``'s full width, depth cut to
     one (rglru, rglru, attn) unit: m = 2 learners of 1 x 2,304 tokens a
-    round from ``token_stream(seed=0)``, sgd (lr 0.05, clip 1.0),
-    ``train_periodic`` (period 2) and ``train_dynamic`` (delta as phase
-    12 picks it), T = 4 each, under phase 12's checks and every gradient
-    finite (``Lambda``'s too); then rounds timed with deterministic
-    algorithms off."""
+    round from ``token_stream(seed=0)`` (``_cut_depth_train``), every
+    gradient finite and ``Lambda``'s reached."""
     from repro_torch.configs import get
-    from repro_torch.core.protocol import ProtocolConfig
     from repro_torch.data.streams import token_stream
-    from repro_torch.optim import OptimizerConfig
 
     cfg = get(LONG_ARCH).with_(n_layers=LONG_TRAIN_LAYERS)
-    opt_cfg = OptimizerConfig(kind="sgd", lr=TRAIN_LR, momentum=0.0,
-                              grad_clip=1.0)
     shape = (TRAIN_M, 1, LONG_TRAIN_SEQ)
     batches = [{"tokens": torch.as_tensor(toks, dtype=torch.int64,
                                           device=dev).reshape(shape),
                 "labels": torch.as_tensor(labels, dtype=torch.int64,
                                           device=dev).reshape(shape)}
                for toks, labels in token_stream(
-                   LONG_TRAIN_T, TRAIN_M, LONG_TRAIN_SEQ, cfg.vocab, seed=0)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-
-    def checked(name, pcfg):
-        rec = _checked_train(name, cfg, pcfg, opt_cfg, batches, dev)
-        assert rec["grad_f32_leaves"] == cfg.pattern.count("rglru"), rec
-        assert rec["grad_max_abs_f32_leaves"] > 0.0, \
+                   CUT_TRAIN_T, TRAIN_M, LONG_TRAIN_SEQ, cfg.vocab, seed=0)]
+    rec = _cut_depth_train(ops, "hybrid", cfg, batches, dev,
+                           LONG_TRAIN_PARAMS, LONG_TRAIN_MODEL_BYTES)
+    for r in rec["runs"].values():
+        assert r["grad_f32_leaves"] == cfg.pattern.count("rglru"), r
+        assert r["grad_max_abs_f32_leaves"] > 0.0, \
             "no gradient reached Lambda"
-        return rec
-
-    periodic = ProtocolConfig(kind="periodic", period=LONG_TRAIN_PERIOD)
-    runs = {"train_periodic": checked("hybrid periodic", periodic)}
-    rec = runs["train_periodic"]
-    assert rec["n_params"] == LONG_TRAIN_PARAMS, rec["n_params"]
-    assert rec["charge"] == 2 * TRAIN_M * LONG_TRAIN_MODEL_BYTES, \
-        rec["charge"]
-    assert sum(rec["flags"]) == LONG_TRAIN_T // LONG_TRAIN_PERIOD
-    lo = max(rec["dists"][0])
-    hi = max(max(d) for d in rec["dists"][:LONG_TRAIN_PERIOD])
-    every = [x for d in rec["dists"] for x in d]
-    delta = float(np.sqrt(lo * hi))
-    assert min(every) < delta < max(every) and lo < delta < hi, (lo, hi)
-    dynamic = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=1)
-    runs["train_dynamic"] = checked("hybrid dynamic", dynamic)
-    assert 0 < sum(runs["train_dynamic"]["flags"]) < LONG_TRAIN_T, \
-        runs["train_dynamic"]["flags"]
-    launches = dict(ops.LAUNCH_COUNTS)
-    assert not launches, f"the hybrid trainer launched {launches}"
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    torch.use_deterministic_algorithms(False)
-    try:
-        round_ms, wall, state, step = _timed_train_rounds(
-            cfg, dynamic, opt_cfg, batches, TRAIN_M, dev)
-    finally:
-        torch.use_deterministic_algorithms(True)
-    del state, step
-    tokens = TRAIN_M * LONG_TRAIN_SEQ
-    med = sorted(round_ms[1:])[len(round_ms[1:]) // 2]
-    return {
-        "reduced": {"n_layers": f"{get(LONG_ARCH).n_layers} -> "
-                    f"{LONG_TRAIN_LAYERS} (one (rglru, rglru, attn) unit)"},
-        "m": TRAIN_M, "tokens_per_round": tokens, "T": LONG_TRAIN_T,
-        "optimizer": dataclasses.asdict(opt_cfg), "dynamic_delta": delta,
-        "runs": {name: {
-            "protocol": dataclasses.asdict(
-                periodic if name == "train_periodic" else dynamic),
-            "losses": r["losses"], "sync_rounds": [
-                t + 1 for t, f in enumerate(r["flags"]) if f],
-            "dists": r["dists"], "bytes_per_sync": r["charge"],
-            "grad_max_abs_f32_leaves": r["grad_max_abs_f32_leaves"],
-            "repeat_bitwise": True} for name, r in runs.items()},
-        "params": LONG_TRAIN_PARAMS, "model_bytes": LONG_TRAIN_MODEL_BYTES,
-        "kernel_launches": launches, "max_memory_allocated": peak,
-        "round_ms": round_ms, "median_round_ms": med,
-        "tokens_per_s": tokens / (med / 1e3), "timed_wall_s": wall}
+    rec["reduced"] = {"n_layers": f"{get(LONG_ARCH).n_layers} -> "
+                      f"{LONG_TRAIN_LAYERS} (one (rglru, rglru, attn) unit)"}
+    return rec
 
 
 def run_long_phase(ops) -> None:
@@ -4214,6 +4362,460 @@ def run_long_phase(ops) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: M-RoPE and the VLM prefix (qwen2_vl_2b)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2_vl_2b"
+VLM_PARAMS = 1_543_910_912        # the reference's tree: param_count's
+VLM_MODEL_BYTES = 3_087_821_824   # 1,543,852,032, qkv biases and norms
+VLM_TEXT = 300                    # text tokens after the 1,024 embeddings
+VLM_DECODE_STEPS = 16
+VLM_F32_STEPS = 16
+VLM_TRAIN_LAYERS = 4
+VLM_TRAIN_SEQ = 256               # text tokens a sequence, after the embeds
+VLM_TRAIN_PARAMS = 420_763_136
+VLM_TRAIN_MODEL_BYTES = 841_526_272
+CUT_TRAIN_T = 4                   # rounds of the cut-depth trainer runs
+CUT_TRAIN_PERIOD = 2
+
+
+def _cut_depth_train(ops, name, cfg, batches, dev, n_params,
+                     model_bytes) -> dict:
+    """The trainer at full width and cut depth (phases 15 to 17): m =
+    ``TRAIN_M`` learners, sgd (lr 0.05, clip 1.0), ``train_periodic``
+    (period ``CUT_TRAIN_PERIOD``) and ``train_dynamic`` (delta as phase
+    12 picks it) over ``batches``, under phase 12's checks (each run
+    repeated bitwise, every gradient finite, the counters held to a host
+    recount); no kernel of the port launched; then the rounds timed with
+    deterministic algorithms off."""
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.optim import OptimizerConfig
+
+    T = len(batches)
+    opt_cfg = OptimizerConfig(kind="sgd", lr=TRAIN_LR, momentum=0.0,
+                              grad_clip=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    periodic = ProtocolConfig(kind="periodic", period=CUT_TRAIN_PERIOD)
+    runs = {"train_periodic": _checked_train(
+        f"{name} periodic", cfg, periodic, opt_cfg, batches, dev)}
+    rec = runs["train_periodic"]
+    assert rec["n_params"] == n_params, rec["n_params"]
+    assert rec["charge"] == 2 * TRAIN_M * model_bytes, rec["charge"]
+    assert sum(rec["flags"]) == T // CUT_TRAIN_PERIOD
+    lo = max(rec["dists"][0])
+    hi = max(max(d) for d in rec["dists"][:CUT_TRAIN_PERIOD])
+    every = [x for d in rec["dists"] for x in d]
+    delta = float(np.sqrt(lo * hi))
+    assert min(every) < delta < max(every) and lo < delta < hi, (lo, hi)
+    dynamic = ProtocolConfig(kind="dynamic", delta=delta, mini_batch=1)
+    runs["train_dynamic"] = _checked_train(
+        f"{name} dynamic", cfg, dynamic, opt_cfg, batches, dev)
+    assert 0 < sum(runs["train_dynamic"]["flags"]) < T, \
+        runs["train_dynamic"]["flags"]
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert not launches, f"the {name} trainer launched {launches}"
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.use_deterministic_algorithms(False)
+    try:
+        round_ms, wall, state, step = _timed_train_rounds(
+            cfg, dynamic, opt_cfg, batches, TRAIN_M, dev)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    del state, step
+    tokens = batches[0]["tokens"].numel()
+    med = sorted(round_ms[1:])[len(round_ms[1:]) // 2]
+    return {
+        "m": TRAIN_M, "tokens_per_round": tokens, "T": T,
+        "optimizer": dataclasses.asdict(opt_cfg), "dynamic_delta": delta,
+        "runs": {key: {
+            "protocol": dataclasses.asdict(
+                periodic if key == "train_periodic" else dynamic),
+            "losses": r["losses"], "sync_rounds": [
+                t + 1 for t, f in enumerate(r["flags"]) if f],
+            "dists": r["dists"], "bytes_per_sync": r["charge"],
+            "grad_max_abs_f32_leaves": r["grad_max_abs_f32_leaves"],
+            "grad_f32_leaves": r["grad_f32_leaves"],
+            "repeat_bitwise": True} for key, r in runs.items()},
+        "params": n_params, "model_bytes": model_bytes,
+        "kernel_launches": launches, "max_memory_allocated": peak,
+        "round_ms": round_ms, "median_round_ms": med,
+        "tokens_per_s": tokens / (med / 1e3), "timed_wall_s": wall}
+
+
+def _grid_positions(cfg, text: int, dev) -> torch.Tensor:
+    """(3, 1, vision_tokens + text) M-RoPE positions: the embeddings as
+    a square grid (t 0, h its row, w its column), then the text on three
+    equal streams from the grid's side onward."""
+    side = int(round(cfg.vision_tokens ** 0.5))
+    assert side * side == cfg.vision_tokens
+    h, w = torch.meshgrid(torch.arange(side), torch.arange(side),
+                          indexing="ij")
+    img = torch.stack([torch.zeros(side * side, dtype=torch.int64),
+                       h.reshape(-1), w.reshape(-1)])
+    txt = torch.arange(side, side + text).expand(3, text)
+    return torch.cat([img, txt], dim=1)[:, None].to(dev)
+
+
+def _vlm_inputs(cfg, B: int, text: int, dev, seed: int = 0) -> dict:
+    """``B`` samples of ``vision_tokens`` seeded patch embeddings (float32
+    normals, cast to the model's dtype inside) and ``text`` tokens."""
+    rng = np.random.default_rng(seed)
+    embeds = rng.normal(size=(B, cfg.vision_tokens, cfg.d_model))
+    return {"embeds": torch.as_tensor(embeds.astype(np.float32),
+                                      device=dev),
+            "tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, text)),
+                                      device=dev)}
+
+
+def _vlm_generate(api, params, batch) -> tuple:
+    """``LMServingEngine.run``'s loop on one batch, at the model API (the
+    engine takes no ``embeds``): the prefill of embeddings and tokens,
+    then ``VLM_DECODE_STEPS`` greedy decode steps at positions
+    vision_tokens + S_text onward, each step's tokens read back as the
+    engine reads them.  Returns (tokens a step, the logits a step)."""
+    cfg = api.cfg
+    S = cfg.vision_tokens + batch["tokens"].shape[1]
+    caches = api.init_caches(batch["tokens"].shape[0], S + VLM_DECODE_STEPS)
+    toks, lgs = [], []
+    with torch.no_grad():
+        logits, caches = api.prefill(params, batch, caches)
+        for step in range(VLM_DECODE_STEPS + 1):
+            lg = logits[:, -1, :cfg.vocab]
+            nxt = torch.argmax(lg, dim=-1)[:, None]
+            toks.append(nxt[:, 0].tolist())
+            lgs.append(lg)
+            if step < VLM_DECODE_STEPS:
+                logits, caches = api.decode(params, caches, nxt, S + step)
+    return toks, torch.stack(lgs)
+
+
+def _vlm_serve(ops, totals, cfg, params, dev) -> dict:
+    """Phase 16's serving run at batch 4 (see ``run_vlm_phase``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build
+
+    api = build(cfg)
+    batch = _vlm_inputs(cfg, LM_BATCH, VLM_TEXT, dev)
+    S = cfg.vision_tokens + VLM_TEXT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _FlashAgainstPlain() as layers:
+        toks, logits = _vlm_generate(api, params, batch)
+    counts = dict(ops.LAUNCH_COUNTS)
+    assert counts == {"flash": cfg.n_layers}, counts
+    assert layers.calls == cfg.n_layers and layers.seqs == {S}, \
+        (layers.calls, layers.seqs)
+    totals["flash"] = totals.get("flash", 0) + counts["flash"]
+    assert all(0 <= t < cfg.vocab for row in toks for t in row)
+    again, again_logits = _vlm_generate(api, params, batch)
+    assert again == toks and torch.equal(again_logits, logits), \
+        "lm_vlm: a repeat differs"
+    peak = torch.cuda.max_memory_allocated()
+    del again_logits
+    torch.use_deterministic_algorithms(False)
+    try:
+        holder = types.SimpleNamespace(api=api)
+        clock = _StepClock(holder)
+        t0 = time.perf_counter()
+        served, _ = _vlm_generate(holder.api, params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _vlm_generate(api, params, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(True)
+    steps = _steps(prof)
+    dec = [x for x in steps if not x["flash"]]
+    generated = LM_BATCH * len(toks)
+    prefill_s, decode_s = clock.seconds("prefill"), clock.seconds("decode")
+    return {"batch": LM_BATCH, "vision_tokens": cfg.vision_tokens,
+            "text_tokens": VLM_TEXT, "prefill_len": S,
+            "decode_steps": VLM_DECODE_STEPS, "decode_positions": [
+                S, S + VLM_DECODE_STEPS - 1],
+            "kernel_launches": counts, "max_memory_allocated": peak,
+            "repeat_bitwise": True, "generated_tokens": generated,
+            "wall_s": secs, "tokens_per_wall_s": generated / secs,
+            "same_tokens": served == toks, "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "decode_ms_per_step": decode_s * 1e3 / VLM_DECODE_STEPS,
+            "steps_traced": len(steps),
+            "decode_kernels_per_step": sorted(x["kernels"] for x in dec),
+            "decode_device_ms_per_step_median": sorted(
+                x["device_s"] * 1e3 for x in dec)[len(dec) // 2]
+            if dec else None,
+            "flash_layers_checked": layers.calls,
+            "flash_layer_max_abs_err": layers.max_err,
+            "flash_layer_max_ulps": layers.max_ulps,
+            "flash_layer_outputs_differing": layers.differ,
+            "flash_layer_outputs": layers.of}
+
+
+def _vlm_layer_against_cpu(ops, cfg, params, dev) -> dict:
+    """One full-width layer's ``gqa_forward`` (flash) with distinct
+    M-RoPE streams, positions (3, 1, 1,324), in float32 on the card
+    against the same call on the CPU, within the parity pair."""
+    from repro_torch.models import attention
+    from repro_torch.tree import tree_map
+
+    cfg32 = cfg.with_(dtype="float32")
+    S = cfg.vision_tokens + VLM_TEXT
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(1, S, cfg.d_model)).astype(np.float32))
+    pos = _grid_positions(cfg, VLM_TEXT, "cpu")
+    p = tree_map(lambda t: t.float(), params["layers"][0]["attn"])
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = attention.gqa_forward(cfg32, p, x.to(dev), pos.to(dev))
+        counts = dict(ops.LAUNCH_COUNTS)
+        want = attention.gqa_forward(cfg32, tree_map(lambda t: t.cpu(), p),
+                                     x, pos)
+    assert counts == {"flash": 1}, counts
+    err = close(got.cpu(), want, "lm_vlm: the layer on the card vs the CPU")
+    return {"positions": list(pos.shape), "streams_differ": bool(
+        (pos[0] != pos[1]).any()), "max_abs_err": err,
+        "kernel_launches": counts}
+
+
+def _vlm_train(ops, dev) -> dict:
+    """The trainer at ``qwen2_vl_2b``'s full width cut to
+    ``VLM_TRAIN_LAYERS`` layers (``use_flash=False``: the trainer's
+    attention is the plain one), m = 2 learners of 1 x (1,024 embeddings
+    + 256 tokens) a round: tokens from ``token_stream(seed=0)``, the
+    embeddings seeded normals (``_cut_depth_train``)."""
+    from repro_torch.configs import get
+    from repro_torch.data.streams import token_stream
+
+    cfg = get(VLM_ARCH).with_(n_layers=VLM_TRAIN_LAYERS, use_flash=False)
+    shape = (TRAIN_M, 1, VLM_TRAIN_SEQ)
+    rng = np.random.default_rng(0)
+    batches = []
+    for toks, labels in token_stream(CUT_TRAIN_T, TRAIN_M, VLM_TRAIN_SEQ,
+                                     cfg.vocab, seed=0):
+        emb = rng.normal(size=(TRAIN_M, 1, cfg.vision_tokens, cfg.d_model))
+        batches.append({
+            "tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                      device=dev).reshape(shape),
+            "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                      device=dev).reshape(shape),
+            "embeds": torch.as_tensor(emb.astype(np.float32), device=dev)})
+    rec = _cut_depth_train(ops, "lm_vlm", cfg, batches, dev,
+                           VLM_TRAIN_PARAMS, VLM_TRAIN_MODEL_BYTES)
+    rec["reduced"] = {"n_layers": f"{get(VLM_ARCH).n_layers} -> "
+                                  f"{VLM_TRAIN_LAYERS}"}
+    rec["embeds_per_sequence"] = cfg.vision_tokens
+    return rec
+
+
+def run_vlm_phase(ops, totals, flashmod, ref) -> dict:
+    """Phase 16 (``lm_vlm``): ``qwen2_vl_2b`` at full width and depth (28
+    layers, d 1536, 12 heads over 2 kv heads of 128, M-RoPE sections
+    (16, 24, 24), bf16, ``use_flash=True``; weights drawn on the card
+    from seed 0): served at batch 4, each sample 1,024 patch embeddings
+    and 300 tokens, with 16 greedy decode steps (``_vlm_serve``);
+    ``flash`` timed at that prefill's shape; one layer with distinct
+    streams against the CPU; the same weights in float32 against a full
+    forward; the trainer at 4 layers.  Returns the ``flash`` kernels
+    line's ``lm_vlm_shapes``."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import model_bytes
+    from repro_torch.models import build, count_params
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get(VLM_ARCH).with_(use_flash=True)
+    dev = device_mod.resolve()
+    torch.cuda.empty_cache()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    assert count_params(params) == VLM_PARAMS
+    assert model_bytes(params) == VLM_MODEL_BYTES
+    line = {"phase": "lm_vlm", "arch": VLM_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "hd": cfg.hd, "mrope_sections": list(cfg.mrope_sections),
+            "dtype": cfg.dtype, "params": VLM_PARAMS,
+            "serve": _vlm_serve(ops, totals, cfg, params, dev)}
+    S = cfg.vision_tokens + VLM_TEXT
+    BH = LM_BATCH * cfg.n_heads
+    ms, plain, library, (bms, by), gemm, _ = flash_timing(
+        flashmod, ref, BH, S, cfg.hd, LM_BATCH, dev,
+        torch.Generator().manual_seed(0))
+    shapes = {VLM_ARCH: {
+        "shape": [BH, S, cfg.hd], "launches": cfg.n_layers,
+        "ms": ms["ms"], "device_ms": ms["device_ms"],
+        "plain_ms": plain["ms"], "plain_device_ms": plain["device_ms"],
+        "library_ms": library["ms"],
+        "library_device_ms": library["device_ms"],
+        "bound_ms": bms, "bound_by": by,
+        "attention_tflops": gemm * 2 / ms["device_ms"] / 1e9}}
+    line["flash"] = shapes[VLM_ARCH]
+    line["layer_vs_cpu"] = _vlm_layer_against_cpu(ops, cfg, params, dev)
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    api = build(cfg.with_(dtype="float32"))
+    inputs = _vlm_inputs(cfg, 1, VLM_TEXT + VLM_F32_STEPS, dev, seed=2)
+    ops.reset_launch_counts()
+    line["f32"], caches = _f32_against_full(
+        api, p32, inputs["tokens"], VLM_TEXT, VLM_F32_STEPS,
+        S + VLM_F32_STEPS + 8, "lm_vlm", embeds=inputs["embeds"])
+    line["f32"]["flash_launches"] = dict(ops.LAUNCH_COUNTS)
+    del p32, caches
+    torch.cuda.empty_cache()
+    line["train"] = _vlm_train(ops, dev)
+    torch.cuda.empty_cache()
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: multi-head latent attention (minicpm3_4b)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "minicpm3_4b"
+MLA_PARAMS = 4_073_937_408        # the reference's tree: param_count's
+MLA_MODEL_BYTES = 8_147_874_816   # 4,073,871,360 and the norm scales
+MLA_PROMPTS = (1024, 700, 333, 64)
+MLA_NEW_TOKENS = 32
+MLA_F32_PROMPT = 1024
+MLA_F32_STEPS = 16
+MLA_TRAIN_LAYERS = 3
+MLA_TRAIN_SEQ = 1024
+MLA_TRAIN_PARAMS = 376_115_712
+MLA_TRAIN_MODEL_BYTES = 752_231_424
+MLA_CACHE_BYTES_PER_TOKEN = 576   # a layer: (kv_lora 256 + rope 32) x bf16
+NAIVE_RTOL, NAIVE_ATOL = 1e-4, 1e-5   # tests/test_attention.py:76
+
+
+class _NaiveWatch:
+    """While active, the first ``limit`` ``mla_decode`` calls (one decode
+    step of every layer) also run the naive form on a copy of the cache;
+    the absorbed output must be within rtol 1e-4, atol 1e-5 of it
+    (tests/test_attention.py:58)."""
+
+    def __init__(self, limit: int):
+        from repro_torch.models import attention
+        self.mod, self.orig = attention, attention.mla_decode
+        self.limit, self.calls, self.max_err = limit, 0, 0.0
+
+    def __enter__(self):
+        self.mod.mla_decode = self._checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mla_decode = self.orig
+
+    def _checked(self, cfg, p, x_t, pos, cache, **kw):
+        if self.calls >= self.limit:
+            return self.orig(cfg, p, x_t, pos, cache, **kw)
+        copy = self.mod.MLACache(*(t.clone() for t in cache))
+        naive, _ = self.orig(cfg, p, x_t, pos, copy,
+                             **dict(kw, absorbed=False))
+        out, cache = self.orig(cfg, p, x_t, pos, cache, **kw)
+        gap = (out - naive).abs()
+        assert bool((gap <= NAIVE_ATOL + NAIVE_RTOL * naive.abs()).all()), \
+            f"lm_mla: absorbed decode {float(gap.max())} off the naive one"
+        self.calls += 1
+        self.max_err = max(self.max_err, float(gap.max()))
+        return out, cache
+
+
+def _mla_train(ops, dev) -> dict:
+    """The trainer at ``minicpm3_4b``'s full width cut to
+    ``MLA_TRAIN_LAYERS`` layers, m = 2 learners of 1 x 1,024 tokens a
+    round from ``token_stream(seed=0)`` (``_cut_depth_train``)."""
+    from repro_torch.configs import get
+    from repro_torch.data.streams import token_stream
+
+    cfg = get(MLA_ARCH).with_(n_layers=MLA_TRAIN_LAYERS)
+    shape = (TRAIN_M, 1, MLA_TRAIN_SEQ)
+    batches = [{"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                          device=dev).reshape(shape),
+                "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                          device=dev).reshape(shape)}
+               for toks, labels in token_stream(
+                   CUT_TRAIN_T, TRAIN_M, MLA_TRAIN_SEQ, cfg.vocab, seed=0)]
+    rec = _cut_depth_train(ops, "lm_mla", cfg, batches, dev,
+                           MLA_TRAIN_PARAMS, MLA_TRAIN_MODEL_BYTES)
+    rec["reduced"] = {"n_layers": f"{get(MLA_ARCH).n_layers} -> "
+                                  f"{MLA_TRAIN_LAYERS}"}
+    return rec
+
+
+def run_mla_phase(ops) -> None:
+    """Phase 17 (``lm_mla``): ``minicpm3_4b`` at full width and depth (62
+    layers, d 2560, 40 heads, q_lora 768, kv_lora 256, nope 64, rope 32,
+    v 64, bf16; weights drawn on the card from seed 0 after phase 16
+    freed its own): ``LMServingEngine`` at batch 4 on ``MLA_PROMPTS``,
+    32 new tokens (``_serve_checked``: a repeat bitwise, no kernel of
+    the port launched); the latent cache's bytes a token; the same
+    weights in float32, a 1,024-token prefill and 16 teacher-forced
+    decode steps against a full forward, the first step's absorbed
+    decode against the naive one in every layer; the trainer at 3
+    layers."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import model_bytes
+    from repro_torch.models import build, count_params
+    from repro_torch.tree import leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get(MLA_ARCH)
+    dev = device_mod.resolve()
+    torch.cuda.empty_cache()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    assert count_params(params) == MLA_PARAMS
+    assert model_bytes(params) == MLA_MODEL_BYTES
+    line = {"phase": "lm_mla", "arch": MLA_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "mla": {k: getattr(cfg, f"mla_{k}") for k in (
+                "q_lora", "kv_lora", "nope_dim", "rope_dim", "v_dim")},
+            "dtype": cfg.dtype, "params": MLA_PARAMS}
+    line["serve"] = _serve_checked(
+        ops, cfg, params, "lm_mla serving", MLA_PROMPTS,
+        max(MLA_PROMPTS) + MLA_NEW_TOKENS, MLA_NEW_TOKENS)
+    one = build(cfg).init_caches(1, 1)[0]
+    per_token = sum(t.numel() * t.element_size() for t in (one.c,
+                                                             one.k_rope))
+    assert per_token == (cfg.mla_kv_lora + cfg.mla_rope_dim) * 2 \
+        == MLA_CACHE_BYTES_PER_TOKEN, per_token
+    line["cache_bytes_per_token_layer"] = per_token
+    line["gqa_cache_bytes_per_token_layer"] = cfg.n_heads * (
+        cfg.mla_nope_dim + cfg.mla_rope_dim + cfg.mla_v_dim) * 2
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    api = build(cfg.with_(dtype="float32"))
+    n = MLA_F32_PROMPT + MLA_F32_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, n)), device=dev)
+    ops.reset_launch_counts()
+    with _NaiveWatch(cfg.n_layers) as naive:
+        line["f32"], caches = _f32_against_full(
+            api, p32, tokens, MLA_F32_PROMPT, MLA_F32_STEPS, n + 8,
+            "lm_mla")
+    assert naive.calls == cfg.n_layers, naive.calls
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    assert all(type(c).__name__ == "MLACache" for c in caches)
+    line["f32"].update(absorbed_vs_naive_layers=naive.calls,
+                       absorbed_vs_naive_max_abs_err=naive.max_err,
+                       absorbed_vs_naive_tol=[NAIVE_RTOL, NAIVE_ATOL],
+                       cache_leaves=len(leaves(caches)))
+    del p32, caches
+    torch.cuda.empty_cache()
+    line["train"] = _mla_train(ops, dev)
+    torch.cuda.empty_cache()
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(line)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4234,6 +4836,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # phases 3 to 9's reference runs: the process starts beside the build
+    refs = _ReferenceRuns()
+    try:
+        return _drive(refs)
+    finally:
+        refs.close()
+
+
+def _drive(refs) -> int:
+    """Every phase in order (``main`` checks the card and the tree)."""
     from repro_torch import device as device_mod
     from repro_torch.kernels import _build, flash, fused, gram, ops, ref
     from repro_torch.kernels import quadform as qf
@@ -4299,13 +4911,14 @@ def main() -> int:
     run_sync_route(ops, ref)
     totals: dict = {}
     runs: dict = {}
-    run_e2e(ops, totals, runs)
-    bucket_counts = run_serving(ops, totals, runs)
-    run_async(ops, totals, runs)
-    grouped = run_sweeps(ops, totals, runs)
-    run_population_phase(ops, totals, runs)
+    run_e2e(ops, totals, runs, refs)
+    bucket_counts = run_serving(ops, totals, runs, refs)
+    run_async(ops, totals, runs, refs)
+    grouped = run_sweeps(ops, totals, runs, refs)
+    run_population_phase(ops, totals, runs, refs)
     run_mesh_phase(ops, totals, runs)
-    run_oracle_phase(runs)
+    run_oracle_phase(runs, refs)
+    refs.close()
     # rff's line at the main path's mix of bucket sizes
     rff_line = results["rff"]
     counts = bucket_counts["serve_rff_dynamic"]
@@ -4329,6 +4942,10 @@ def main() -> int:
     dense_shapes = run_dense_phase(ops, totals, flash, ref)
     torch.cuda.empty_cache()
     run_long_phase(ops)
+    torch.cuda.empty_cache()
+    vlm_shapes = run_vlm_phase(ops, totals, flash, ref)
+    torch.cuda.empty_cache()
+    run_mla_phase(ops)
 
     tuned_op = {"sv_predict": "sv_predict", "quadform": "quadform",
                 "primal_step_rff": "rff_step",
@@ -4388,6 +5005,8 @@ def main() -> int:
             # flash at the dense configs' prefill shapes (phase 14)
             **({"lm_dense_shapes": dense_shapes} if name == "flash"
                else {}),
+            # flash at qwen2_vl_2b's prefill shape (phase 16)
+            **({"lm_vlm_shapes": vlm_shapes} if name == "flash" else {}),
             # the geometry phase 2's search chose at the main path's shape
             **({"autotune": {k: tuned[tuned_op[name]][k] for k in (
                 "choice", "source", "times_ms")}} if name in tuned_op

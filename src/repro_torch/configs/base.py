@@ -7,7 +7,10 @@ exact sizes and registers it.  ``get(name)`` returns the full config;
 Only the architectures in ``PORTED`` have a module here.  ``get`` of
 another architecture of the reference raises ``NotImplementedError``
 (ROADMAP.md, "Modules still to port"): it never hands out a config the
-port's model cannot run.  ``all_arch_ids`` is the reference's full id
+port's model cannot run.  What is left is the MoE family
+(``olmoe_1b_7b``, ``granite_moe_1b_a400m``) and the encoder-decoder
+(``whisper_large_v3``); the VLM (``qwen2_vl_2b``, M-RoPE) and MLA
+(``minicpm3_4b``) configs run.  ``all_arch_ids`` is the reference's full id
 list, ported or not.
 """
 from __future__ import annotations
@@ -34,7 +37,7 @@ ARCH_IDS: List[str] = [
 
 #: The architectures the port runs.
 PORTED = ("qwen2_5_3b", "mamba2_130m", "granite_8b", "qwen3_14b",
-          "paper_kernel", "recurrentgemma_9b")
+          "paper_kernel", "recurrentgemma_9b", "qwen2_vl_2b", "minicpm3_4b")
 
 # CLI aliases (dashes as given in the reference)
 ALIASES = {

@@ -6,7 +6,8 @@ hold JAX arrays, which ``np.asarray`` reads) and build the port's
 NamedTuples of tensors on ``device``: floats as float32, ids and
 counters as int32, exactly as the reference stores them.
 
-``lm_params`` carries an LM parameter tree across (each leaf keeps its
+``lm_params`` carries an LM parameter tree across, whatever its leaves
+(an MLA layer's ``w_dq`` .. ``wo`` as a GQA layer's; each leaf keeps its
 float32 or bfloat16 type, so a bf16 Mamba-2 tree keeps its float32
 ``A_log``, ``D`` and ``dt_bias`` and a bf16 hybrid its float32
 ``Lambda``), ``lm_caches`` the LM's prefill and decode caches (over
@@ -27,7 +28,7 @@ from .core.protocol import ProtocolState
 from .core.rff import RFFLearnerState, RFFSpec
 from .core.rkhs import SVModel
 from .launch.train import TrainState
-from .models.attention import KVCache
+from .models.attention import KVCache, MLACache
 from .models.rglru import LRUState
 from .models.ssm import SSMState
 from .models.transformer import PORTED_KINDS
@@ -136,20 +137,23 @@ def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
     return out
 
 
-_CACHES = {"attn": KVCache, "ssm": SSMState, "rglru": LRUState}
+_CACHES = {"attn": KVCache, "mla": MLACache, "ssm": SSMState,
+           "rglru": LRUState}
 
 
 def lm_caches(caches: Any, cfg, device=None) -> list:
     """The port's per-layer caches from the reference's stacked
     per-stage ones (``init_caches`` / ``prefill`` / ``decode_step``):
-    each stage's units unstacked into one ``KVCache``, ``SSMState`` or
-    ``LRUState`` a layer in pattern order, each leaf in its own type
+    each stage's units unstacked into one ``KVCache`` (``MLACache`` for
+    MLA), ``SSMState`` or ``LRUState`` a layer in pattern order, each leaf in its own type
     (``slot_pos`` as int32), so a prefill or a decode can start from a
     JAX state."""
     dev = device_mod.resolve(device)
     out = []
     for s, r, j, kind in _layers(cfg, caches):
         stack = caches[s][f"b{j}"]
+        if kind == "attn" and cfg.attn_kind == "mla":
+            kind = "mla"
         fields = _CACHES[kind]._fields
         out.append(_CACHES[kind](*(
             _array(np.take(np.asarray(getattr(stack, f)), r, axis=0), dev)

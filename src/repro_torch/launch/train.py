@@ -77,7 +77,8 @@ def init_train_state(seed_or_generator: Union[int, torch.Generator],
 def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
                     opt_cfg: OptimizerConfig):
     """``train_step(state, batch) -> (state, mean loss)``; ``batch``
-    holds ``tokens`` and ``labels`` of shape (m, B, S)."""
+    holds ``tokens`` and ``labels`` of shape (m, B, S), and a VLM's
+    ``embeds`` (m, B, vision_tokens, d) before them."""
     api = build(cfg)
     opt = make_optimizer(opt_cfg)
 
@@ -163,6 +164,10 @@ def main(argv=None):
             "labels": torch.as_tensor(toks[..., 1:], dtype=torch.int64,
                                       device=dev),
         }
+        if cfg.arch_type == "vlm":
+            batch["embeds"] = torch.as_tensor(np.asarray(
+                rng.normal(size=(m, args.batch, cfg.vision_tokens,
+                                 cfg.d_model)), np.float32), device=dev)
         state, loss = step_fn(state, batch)
         print(f"step {t:4d} loss={float(loss):8.4f} "
               f"syncs={int(state.pstate.syncs):3d} "

@@ -1,4 +1,5 @@
-"""Grouped-query attention (port of ``repro/models/attention.py``, GQA).
+"""Attention (port of ``repro/models/attention.py``): grouped-query
+attention with M-RoPE, and multi-head latent attention (MLA).
 
 Projections use merged head dims (n_heads * head_dim), as the
 reference's.  The full-sequence path runs the hand-written flash kernel
@@ -24,8 +25,24 @@ token a slot holds, and decode masks by it; positions run past L.
 Ring writes are plain slice copies into distinct slots, deterministic
 on the card.
 
-MLA, cross attention and M-RoPE raise ``NotImplementedError``
-(ROADMAP.md).
+M-RoPE (``cfg.mrope_sections``, Qwen2-VL): q and k are rotated by three
+position streams (t, h, w), ``layers.apply_mrope``.  ``positions`` of
+shape (3, B, S) are used as given; (B, S) positions, or none, are the
+same stream three times, and decode broadcasts its position likewise.
+
+MLA (``cfg.attn_kind == "mla"``, MiniCPM3): queries and keys go through
+low-rank latents (``w_dq`` / ``w_uq``, ``w_dkv`` / ``w_uk`` / ``w_uv``)
+with a single rope key head shared by every head.  The full-sequence
+path is plain float32 einsums, as the reference's (it never takes the
+flash kernel).  The cache (``MLACache``) holds only the normed latent
+``c`` (B, L, kv_lora) and the rotated rope key (B, L, rope_dim) a token;
+``mla_decode`` scores against it in latent space (``absorbed=True``,
+the default: W_uk folded into the query, values combined before W_uv)
+or rebuilds every key and value (``absorbed=False``, the reference's
+oracle).  It too writes the cache in place, a ring of L slots under a
+window.
+
+Cross attention raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,7 +53,7 @@ import torch
 
 from ..kernels.flash import flash_attention
 from .config import ModelConfig
-from .layers import apply_rope, dense, dense_init, rmsnorm
+from .layers import apply_mrope, apply_rope, dense, dense_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
 
@@ -51,6 +68,16 @@ class KVCache(NamedTuple):
     @property
     def length(self) -> int:
         return self.k.shape[1]
+
+
+class MLACache(NamedTuple):
+    c: torch.Tensor            # (B, L, kv_lora)
+    k_rope: torch.Tensor       # (B, L, rope_dim)
+    slot_pos: torch.Tensor     # (L,)
+
+    @property
+    def length(self) -> int:
+        return self.c.shape[1]
 
 
 def _not_ported(what: str):
@@ -82,7 +109,27 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = cfg.mla_nope_dim + cfg.mla_rope_dim
+    ones = dict(dtype=dtype, device=gen.device)
+    return {
+        "w_dq": dense_init(gen, d, cfg.mla_q_lora, dtype),
+        "q_norm": {"scale": torch.ones((cfg.mla_q_lora,), **ones)},
+        "w_uq": dense_init(gen, cfg.mla_q_lora, H * qk_dim, dtype),
+        "w_dkv": dense_init(gen, d, cfg.mla_kv_lora, dtype),
+        "kv_norm": {"scale": torch.ones((cfg.mla_kv_lora,), **ones)},
+        "w_kr": dense_init(gen, d, cfg.mla_rope_dim, dtype),
+        "w_uk": dense_init(gen, cfg.mla_kv_lora, H * cfg.mla_nope_dim,
+                           dtype),
+        "w_uv": dense_init(gen, cfg.mla_kv_lora, H * cfg.mla_v_dim, dtype),
+        "wo": dense_init(gen, H * cfg.mla_v_dim, d, dtype),
+    }
+
+
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    if cfg.attn_kind == "mla":
+        return mla_init(gen, cfg, dtype)
     if cfg.attn_kind != "gqa":
         raise _not_ported(f"attention kind {cfg.attn_kind!r}")
     return gqa_init(gen, cfg, dtype)
@@ -101,9 +148,10 @@ def _inv_sqrt(hd: int) -> float:
 def _flash_sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, causal: bool) -> torch.Tensor:
     """The flash kernel over (B, S, H, hd) heads: repeats GQA kv heads,
-    folds (B, H) into the kernel's leading axis.  The kernel masks the
-    ragged edge itself, so S needs no padding: its rows are the rows of
-    the reference's padded call."""
+    folds (B, H) into the kernel's leading axis (a contiguous copy: at
+    B = 1 the fold is a strided view, which the kernel refuses).  The
+    kernel masks the ragged edge itself, so S needs no padding: its rows
+    are the rows of the reference's padded call."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     if K != H:
@@ -111,7 +159,7 @@ def _flash_sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         v = torch.repeat_interleave(v, H // K, dim=2)
 
     def fold(t):
-        return t.transpose(1, 2).reshape(B * H, t.shape[1], hd)
+        return t.transpose(1, 2).reshape(B * H, t.shape[1], hd).contiguous()
 
     o = flash_attention(fold(q), fold(k), fold(v), causal=causal)
     return o.reshape(B, H, S, hd).transpose(1, 2)
@@ -175,10 +223,15 @@ def _positions_default(B: int, S: int, offset: int = 0,
 
 
 def _rotate(cfg: ModelConfig, q, k, positions):
+    """RoPE, or M-RoPE when ``cfg.mrope_sections``: (B, S) positions are
+    broadcast to 3 equal streams, (3, B, S) ones used as given."""
     if cfg.pos_kind != "rope":
         return q, k
     if cfg.mrope_sections:
-        raise _not_ported("M-RoPE")
+        pos3 = positions if positions.dim() == 3 else positions.expand(
+            (3,) + tuple(positions.shape))
+        return (apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -253,3 +306,123 @@ def gqa_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, pos: int,
     y = _sdpa_grouped(q, cache.k, cache.v, mask, _inv_sqrt(hd))
     out = dense(p["wo"], y.reshape(B, 1, cfg.n_heads * hd))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA forward / decode
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv_full(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  positions: torch.Tensor):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    q_lat = rmsnorm(p["q_norm"], dense(p["w_dq"], x), cfg.norm_eps)
+    q = dense(p["w_uq"], q_lat).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c = rmsnorm(p["kv_norm"], dense(p["w_dkv"], x), cfg.norm_eps)
+    k_rope = dense(p["w_kr"], x).reshape(B, S, 1, rope_d)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    k_nope = dense(p["w_uk"], c).reshape(B, S, H, nope)
+    v = dense(p["w_uv"], c).reshape(B, S, H, vd)
+    return q_nope, q_rope, k_nope, k_rope, v, c
+
+
+def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None, *,
+                causal: bool = True, window: int = 0,
+                return_latent: bool = False):
+    """Full-sequence MLA.  With ``return_latent`` also returns what the
+    cache keeps of each token: (c (B, S, kv_lora), k_rope (B, S,
+    rope_dim)), the reference's ``_mla_prefill`` recomputation."""
+    B, S, _ = x.shape
+    pos = positions if positions is not None else _positions_default(
+        B, S, device=x.device)
+    q_nope, q_rope, k_nope, k_rope, v, c = _mla_qkv_full(cfg, p, x, pos)
+    k_rope = k_rope[:, :, 0]                     # the one shared head
+    logits = (torch.einsum("bshd,blhd->bhsl", q_nope.float(),
+                           k_nope.float())
+              + torch.einsum("bshd,bld->bhsl", q_rope.float(),
+                             k_rope.float())) \
+        * _inv_sqrt(cfg.mla_nope_dim + cfg.mla_rope_dim)
+    if causal:
+        logits = _mask_logits(logits, causal_mask(S, S, 0, window,
+                                                  x.device), 2)
+    w = torch.softmax(logits, dim=-1)
+    y = torch.einsum("bhsl,blhd->bshd", w, v.float()).to(x.dtype)
+    out = dense(p["wo"], y.reshape(B, S, cfg.n_heads * cfg.mla_v_dim))
+    if return_latent:
+        return out, (c, k_rope)
+    return out
+
+
+def init_mla_cache(cfg: ModelConfig, B: int, length: int, dtype,
+                   device=None) -> MLACache:
+    return MLACache(
+        c=torch.zeros((B, length, cfg.mla_kv_lora), dtype=dtype,
+                      device=device),
+        k_rope=torch.zeros((B, length, cfg.mla_rope_dim), dtype=dtype,
+                           device=device),
+        slot_pos=torch.full((length,), -1, dtype=torch.int32, device=device))
+
+
+def mla_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, pos: int,
+               cache: MLACache, *, window: int = 0, absorbed: bool = True):
+    """One token at absolute position ``pos`` (a host int) against the
+    latent cache, written in place (slot pos % L under a window, as
+    ``gqa_decode``).  ``absorbed`` scores in latent space, O(L kv_lora)
+    a token: q_nope folded through W_uk, the weights applied to the
+    latents before W_uv.  ``absorbed=False`` rebuilds every cached
+    token's keys and values per head (the oracle).  Returns (out,
+    cache)."""
+    B = x_t.shape[0]
+    H = cfg.n_heads
+    nope, rope_d, vd, lora = (cfg.mla_nope_dim, cfg.mla_rope_dim,
+                              cfg.mla_v_dim, cfg.mla_kv_lora)
+    pos = int(pos)
+    L = cache.length
+    if pos < 0 or (window == 0 and pos >= L):
+        raise ValueError(f"position {pos} outside the cache of {L} slots")
+    slot = pos % L
+    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x_t.device)
+
+    q_lat = rmsnorm(p["q_norm"], dense(p["w_dq"], x_t), cfg.norm_eps)
+    q = dense(p["w_uq"], q_lat).reshape(B, 1, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
+    c_t = rmsnorm(p["kv_norm"], dense(p["w_dkv"], x_t), cfg.norm_eps)
+    k_rope_t = apply_rope(dense(p["w_kr"], x_t).reshape(B, 1, 1, rope_d),
+                          posb, cfg.rope_theta)
+
+    cache.c[:, slot] = c_t[:, 0].to(cache.c.dtype)
+    cache.k_rope[:, slot] = k_rope_t[:, 0, 0].to(cache.k_rope.dtype)
+    cache.slot_pos[slot] = pos
+    spos = cache.slot_pos
+    valid = (spos >= 0) & (spos <= pos)
+    if window > 0:
+        valid &= spos > pos - window
+
+    cc = cache.c.float()
+    w_uk = p["w_uk"]["w"].reshape(lora, H, nope).float()
+    if absorbed:
+        q_lat_scores = torch.einsum("bshd,lhd->bhl", q_nope.float(), w_uk)
+        s_nope = torch.einsum("bhl,bLl->bhL", q_lat_scores, cc)
+    else:
+        k_nope_all = torch.einsum("bLl,lhd->bLhd", cc, w_uk)
+        s_nope = torch.einsum("bshd,bLhd->bhL", q_nope.float(), k_nope_all)
+    s_rope = torch.einsum("bshd,bLd->bhL", q_rope.float(),
+                          cache.k_rope.float())
+    logits = (s_nope + s_rope) * _inv_sqrt(nope + rope_d)
+    w = torch.softmax(_mask_logits(logits, valid[None, :], 1), dim=-1)
+
+    w_uv = p["w_uv"]["w"].reshape(lora, H, vd).float()
+    if absorbed:
+        ctx_lat = torch.einsum("bhL,bLl->bhl", w, cc)
+        y = torch.einsum("bhl,lhd->bhd", ctx_lat, w_uv)
+    else:
+        v_all = torch.einsum("bLl,lhd->bLhd", cc, w_uv)
+        y = torch.einsum("bhL,bLhd->bhd", w, v_all)
+    y = y.reshape(B, 1, H * vd).to(x_t.dtype)
+    return dense(p["wo"], y), cache

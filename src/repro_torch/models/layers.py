@@ -9,9 +9,8 @@ Initializers take an explicit ``torch.Generator`` and draw on its
 device.  They follow the reference's scales, not its numbers: JAX's
 keys and PyTorch's generators give different draws from the same seed,
 so the tests carry the reference's parameters across
-(``convert.lm_params``).  ``apply_mrope`` waits for the VLM slice,
-``constrain`` for MoE and ``sinusoidal_pos`` for the encoder-decoder
-family.
+(``convert.lm_params``).  ``constrain`` waits for MoE and
+``sinusoidal_pos`` for the encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -142,6 +141,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
     angles = positions[..., None].float() * freqs             # (..., S, hd/2)
     angles = angles[..., None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the rotary half-dims are split into
+    (t, h, w) sections, each rotated by its own position stream.
+
+    x: (B, S, H, hd); positions3: (3, B, S); sum(sections) == hd // 2.
+    Half-dim i takes the stream of the section it falls in, as the
+    reference's ``repeat`` / ``take`` selects it.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"hd // 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    lead = tuple(positions3.shape[1:])
+    pos = torch.cat([positions3[i][..., None].expand(lead + (n,))
+                     for i, n in enumerate(sections)], dim=-1)  # (B, S, hd/2)
+    angles = (pos.float() * freqs)[..., None, :]              # (B, S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

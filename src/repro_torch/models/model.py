@@ -13,9 +13,10 @@
 prefix, ``labels`` (B, S) for ``loss``).  ``init`` and ``init_caches``
 resolve ``device=None`` to the CUDA card and raise where there is none;
 a generator passed to ``init`` must live on that device.  The dense
-(``attn``, sliding-window too), SSM (``ssm``) and hybrid (``rglru`` with
-local attention) decoders run; ``init_caches`` gives one ``KVCache``
-(a ring when ``cfg.window > 0``), ``SSMState`` or ``LRUState`` per
+(``attn``, sliding-window too, with M-RoPE or MLA), VLM (``embeds``
+before the tokens), SSM (``ssm``) and hybrid (``rglru`` with local
+attention) decoders run; ``init_caches`` gives one ``KVCache`` (a ring
+when ``cfg.window > 0``), ``MLACache``, ``SSMState`` or ``LRUState`` per
 layer, in pattern order.  The encoder-decoder family raises
 ``NotImplementedError`` (ROADMAP.md).
 """

@@ -19,12 +19,15 @@ Four entry points, as the reference's:
   lm_loss      -- the next-token cross-entropy (training)
 
 Three block kinds run: ``attn`` (the dense decoder, local attention
-when ``cfg.window > 0``), ``ssm`` (Mamba-2, ``models/ssm.py``; no
-positions, an aux loss of 0) and ``rglru`` (the Griffin recurrent block
-with its MLP, ``models/rglru.py``), in any pattern of units and stages
-(``recurrentgemma_9b``: (rglru, rglru, attn) x 12, then (rglru,
-rglru)).  The ``moe`` kind, MLA, M-RoPE and the encoder-decoder family
-raise ``NotImplementedError`` (ROADMAP.md).
+when ``cfg.window > 0``; grouped-query attention with RoPE or M-RoPE, or
+MLA with its latent cache, ``MLACache``), ``ssm`` (Mamba-2,
+``models/ssm.py``; no positions, an aux loss of 0) and ``rglru`` (the
+Griffin recurrent block with its MLP, ``models/rglru.py``), in any
+pattern of units and stages (``recurrentgemma_9b``: (rglru, rglru,
+attn) x 12, then (rglru, rglru)).  A VLM's ``embeds`` (B, vision_tokens,
+d) go before the tokens' embeddings (``qwen2_vl_2b``).  The ``moe`` kind
+and the encoder-decoder family raise ``NotImplementedError``
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -60,10 +63,8 @@ def check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.pattern)
     if kinds - PORTED_KINDS:
         raise attn._not_ported(f"block kinds {sorted(kinds - PORTED_KINDS)}")
-    if "attn" in kinds and cfg.attn_kind != "gqa":
+    if "attn" in kinds and cfg.attn_kind not in ("gqa", "mla"):
         raise attn._not_ported(f"attention kind {cfg.attn_kind!r}")
-    if cfg.mrope_sections:
-        raise attn._not_ported("M-RoPE")
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +110,9 @@ def block_forward(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         return x + ssm_mod.ssm_forward(cfg, p["ssm"], h)[0], _zero_aux(x)
     if kind == "rglru":
         x = x + rglru_mod.rglru_forward(cfg, p["rglru"], h)[0]
+    elif cfg.attn_kind == "mla":
+        x = x + attn.mla_forward(cfg, p["attn"], h, positions,
+                                 window=cfg.window)
     else:
         x = x + attn.gqa_forward(cfg, p["attn"], h, positions,
                                  window=cfg.window)
@@ -125,6 +129,8 @@ def block_cache_init(cfg: ModelConfig, kind: str, B: int, length: int,
     if kind == "rglru":
         return rglru_mod.init_lru_state(cfg, B, dtype, device)
     L = min(length, cfg.window) if cfg.window > 0 else length
+    if cfg.attn_kind == "mla":
+        return attn.init_mla_cache(cfg, B, L, dtype, device)
     return attn.init_kv_cache(cfg, B, L, dtype, device)
 
 
@@ -155,6 +161,27 @@ def _fill_kv_cache(cfg: ModelConfig, cache: attn.KVCache, kv,
     return cache
 
 
+def _mla_prefill(cfg: ModelConfig, p: Params, h, positions,
+                 cache: attn.MLACache):
+    """MLA over the prompt, its latents and rope keys written into
+    slots 0 .. S-1 in place, the other slots marked empty.  A prompt
+    longer than the cache raises, windowed or not: the reference's
+    ``lax.dynamic_update_slice`` refuses it too (it has no ring fill for
+    MLA)."""
+    S = h.shape[1]
+    L = cache.length
+    if S > L:
+        raise ValueError(f"MLA prefill of {S} tokens into a cache of {L} "
+                         f"slots")
+    a, (c, k_rope) = attn.mla_forward(cfg, p, h, positions,
+                                      window=cfg.window, return_latent=True)
+    cache.c[:, :S] = c.to(cache.c.dtype)
+    cache.k_rope[:, :S] = k_rope.to(cache.k_rope.dtype)
+    pos = torch.arange(L, dtype=torch.int32, device=cache.slot_pos.device)
+    cache.slot_pos.copy_(torch.where(pos < S, pos, torch.full_like(pos, -1)))
+    return a, cache
+
+
 def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
                   positions: Optional[torch.Tensor]):
     """Full-sequence forward that also fills this block's cache.
@@ -168,6 +195,8 @@ def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
         return x + y, state, _zero_aux(x)
     if kind == "rglru":
         a, cache = rglru_mod.rglru_forward(cfg, p["rglru"], h, cache)
+    elif cfg.attn_kind == "mla":
+        a, cache = _mla_prefill(cfg, p["attn"], h, positions, cache)
     else:
         a, kv = attn.gqa_forward(cfg, p["attn"], h, positions,
                                  window=cfg.window, return_kv=True)
@@ -186,6 +215,9 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
         return x_t + y, state
     if kind == "rglru":
         a, cache = rglru_mod.rglru_decode(cfg, p["rglru"], h, cache)
+    elif cfg.attn_kind == "mla":
+        a, cache = attn.mla_decode(cfg, p["attn"], h, pos, cache,
+                                   window=cfg.window)
     else:
         a, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache,
                                    window=cfg.window)

@@ -1323,3 +1323,88 @@ def test_every_autotune_candidate_is_bitwise_the_default(cuda):
         assert c.compiles == 0
     finally:
         autotune.clear_cache()
+
+
+# ---------------------------------------------------------------------------
+# M-RoPE with the VLM prefix, and MLA
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_mla_absorbed_decode_at_full_width_equals_naive(cuda):
+    """One ``minicpm3_4b`` layer at full width (d 2560, 40 heads,
+    kv_lora 256, nope 64, rope 32, v 64) in float32: a 512-token
+    prefill into the latent cache, then 4 decode steps, each absorbed
+    output within rtol 1e-4, atol 1e-5 of the naive one on a copy of
+    the cache (tests/test_attention.py:58)."""
+    from repro_torch.models import attention, transformer
+
+    cfg = get_config("minicpm3_4b").with_(n_layers=1, dtype="float32")
+    p = attention.mla_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 516, cfg.d_model, generator=gen).to(cuda)
+    cache = attention.init_mla_cache(cfg, 2, 520, torch.float32, cuda)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        _, cache = transformer._mla_prefill(cfg, p, x[:, :512], None, cache)
+        for t in range(512, 516):
+            copy = attention.MLACache(*(c.clone() for c in cache))
+            naive, _ = attention.mla_decode(cfg, p, x[:, t:t + 1], t, copy,
+                                            absorbed=False)
+            got, cache = attention.mla_decode(cfg, p, x[:, t:t + 1], t, cache)
+            _close(got, naive, f"absorbed vs naive at {t}", rtol=1e-4,
+                   atol=1e-5)
+    assert cache.slot_pos.tolist() == list(range(516)) + [-1] * 4
+    assert not ops.LAUNCH_COUNTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+def test_vlm_flash_prefill_layer_at_full_width(B, cuda):
+    """One ``qwen2_vl_2b`` layer at full width (d 1536, 12 heads over 2
+    kv heads of 128, M-RoPE sections (16, 24, 24), bf16) over 1,024 patch
+    embeddings and 300 tokens (S 1,324, distinct streams on the grid):
+    the flash output within 2 bf16 ulps (plus 2e-5) of the plain
+    attention on the same rotated q, k, v, one launch.  At B = 1 the
+    folded heads are a strided view until copied."""
+    from repro_torch.models import attention
+
+    cfg = get_config("qwen2_vl_2b").with_(use_flash=True)
+    p = attention.gqa_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           torch.bfloat16)
+    side, text = 32, 300
+    h, w = torch.meshgrid(torch.arange(side), torch.arange(side),
+                          indexing="ij")
+    img = torch.stack([torch.zeros(side * side, dtype=torch.int64),
+                       h.reshape(-1), w.reshape(-1)])
+    pos = torch.cat([img, torch.arange(side, side + text).expand(3, text)],
+                    dim=1)[:, None].expand(3, B, -1).to(cuda)
+    x = torch.randn(B, pos.shape[2], cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    x = x.to(torch.bfloat16)
+    seen = []
+    orig = attention._flash_sdpa
+
+    def checked(c, q, k, v, causal):
+        o = orig(c, q, k, v, causal)
+        S = q.shape[1]
+        want = attention._sdpa(q, k, v, attention.causal_mask(S, S, 0, 0,
+                                                              q.device),
+                               attention._inv_sqrt(c.hd)).float()
+        e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+        assert bool(((o.float() - want).abs()
+                     <= 2 * torch.exp2(e - 7) + 2e-5).all())
+        seen.append(q.shape)
+        return o
+
+    ops.reset_launch_counts()
+    attention._flash_sdpa = checked
+    try:
+        with torch.no_grad():
+            out = attention.gqa_forward(cfg, p, x, pos)
+    finally:
+        attention._flash_sdpa = orig
+    assert seen == [(B, 1324, 12, 128)], seen
+    assert dict(ops.LAUNCH_COUNTS) == {"flash": 1}
+    assert bool(torch.isfinite(out).all())

@@ -319,16 +319,16 @@ def test_bf16_smoke_matches_reference():
 
 def test_unported_families_raise():
     jc, tc = _cfgs()
-    for kw in (dict(encoder_layers=2), dict(attn_kind="mla"),
-               dict(arch_type="moe"), dict(mrope_sections=(8, 12, 12))):
+    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
         with pytest.raises(NotImplementedError):
             tbuild(tc.with_(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tget("olmoe_1b_7b")
     # the loss is ported (tests/test_torch_train.py); an unported family's
     # loss still raises
-    with pytest.raises(NotImplementedError):
-        ttransformer.lm_loss(None, tc.with_(attn_kind="mla"), None, None)
+    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
+        with pytest.raises(NotImplementedError):
+            ttransformer.lm_loss(None, tc.with_(**kw), None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +341,8 @@ def test_registry_matches_reference():
     assert tall_arch_ids(include_paper=True) == jall_arch_ids(
         include_paper=True)
     assert set(PORTED) == {"qwen2_5_3b", "mamba2_130m", "granite_8b",
-                           "qwen3_14b", "paper_kernel", "recurrentgemma_9b"}
+                           "qwen3_14b", "paper_kernel", "recurrentgemma_9b",
+                           "qwen2_vl_2b", "minicpm3_4b"}
     for name in PORTED:
         want, got = jget(name), tget(name)
         if name == "paper_kernel":

@@ -184,17 +184,16 @@ def test_trainer_defaults_to_the_card_and_raises_without_it():
 def test_unported_families_raise_in_the_trainer():
     _, tc = _cfgs()
     opt_cfg = OptimizerConfig()
-    for kw in (dict(encoder_layers=2), dict(attn_kind="mla"),
-               dict(arch_type="moe"),
-               dict(mrope_sections=(8, 12, 12))):
+    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
         with pytest.raises(NotImplementedError):
             ttrain.init_train_state(0, tc.with_(**kw), 2, opt_cfg,
                                     device="cpu")
         with pytest.raises(NotImplementedError):
             ttrain.make_train_step(tc.with_(**kw),
                                    tproto.ProtocolConfig(), opt_cfg)
-    with pytest.raises(NotImplementedError):
-        ttransformer.lm_loss(None, tc.with_(attn_kind="mla"), None, None)
+    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
+        with pytest.raises(NotImplementedError):
+            ttransformer.lm_loss(None, tc.with_(**kw), None, None)
     with pytest.raises(NotImplementedError):
         tget("olmoe_1b_7b")
 

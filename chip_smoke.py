@@ -268,6 +268,40 @@ non-zero with no result line:
    absorbed decode in every layer within rtol 1e-4, atol 1e-5 of the
    naive one; the trainer at full width cut to 3 layers, m = 2 x 1,024
    tokens, periodic and dynamic, T = 4, under phase 12's checks.
+18. ``lm_moe``: ``olmoe_1b_7b`` (16 layers, d 2048, 16 heads of 128,
+   ``qk_norm``, 64 experts of 1,024, top 8; 6,919,624,704 parameters)
+   and then ``granite_moe_1b_a400m`` (24 layers, d 1024, 16 heads over 8
+   kv heads of 64, 32 experts of 512, top 8, tied; 1,334,887,424), bf16,
+   ``use_flash=True``, capacity factor 1.25 in groups of 256, full width
+   and depth from seed 0 after phase 17 freed its own, one at a time:
+   ``LMServingEngine`` at batch 4 on prompts of 1,024, 700, 333 and 64
+   tokens, 32 new tokens, under ``_serve_checked`` (one ``flash`` launch
+   a layer, a repeat bitwise), every flash layer within 2 bf16 ulps
+   (plus 2e-5) of ``_sdpa`` on its own q, k, v, each prefill layer's
+   dropped assignments counted (``_DropWatch``); ``flash`` timed at the
+   prefill's shape (the ``flash`` entry's ``lm_moe_shapes``; hd 64 for
+   ``granite_moe_1b_a400m``); the weights in float32 with capacity
+   factor E / K (nothing can drop: every grouped call keeps all T K
+   assignments), a 512-token prefill and 16 teacher-forced decode steps
+   (the dense, capacity-free form) within 2e-2 of the largest logit of
+   one full forward, at 4 layers for ``olmoe_1b_7b`` and full depth for
+   ``granite_moe_1b_a400m``; ``olmoe_1b_7b``'s trainer at 3 layers, m = 2
+   x 512 tokens, T = 4, under phase 12's checks, the aux loss nonzero.
+19. ``lm_audio``: ``whisper_large_v3`` at full width and depth (32
+   encoder and 32 decoder layers, d 1280, 20 heads of 64, LayerNorm,
+   GELU, bf16, ``use_flash=False``, the config's: the reference refuses
+   a non-causal flash at 1,500 frames; 1,545,835,520 parameters; weights
+   from seed 0 after phase 18 freed its own): batch 4 of 1,500 seeded
+   frame embeddings (the reference's stub frontend) and 4-token decoder
+   prompts through ``launch/serve.py``'s ``make_prefill_step`` and 31
+   greedy ``make_decode_step`` calls (caches of 448 slots; the
+   reference's LM engine builds no ``frames``), no kernel of the port
+   launched, a repeat bitwise, then timed with deterministic algorithms
+   off; the first encoder layer in float32 on the card against the CPU;
+   the same weights in float32, a 4-token prefill and 31 teacher-forced
+   decode steps within 2e-2 of the largest logit of ``decode_train``;
+   the trainer at 4 + 4 layers, m = 2 x (1,500 frames + 256 tokens), T =
+   4, under phase 12's checks.
 
 Every run phase reads the card's busy share and top kernels over a
 window, the run's first twentieth of rounds run again unprofiled for its
@@ -276,7 +310,8 @@ line); its bitwise repeat runs unprofiled.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` summary (with each kernel's ``slice_shapes`` and
-``mesh_shapes`` numbers and the SV sweep's grouped check sizes), and
+``mesh_shapes`` numbers, ``flash``'s LM prefill shapes and the SV
+sweep's grouped check sizes), and
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
@@ -290,6 +325,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import collections  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -3823,12 +3859,15 @@ def _ssm_serve(ops, cfg, params, dev) -> dict:
 
 
 def _serve_checked(ops, cfg, params, label, prompts=None, max_len=None,
-                   new_tokens=None) -> dict:
+                   new_tokens=None, expect=None, watch=None) -> dict:
     """``LMServingEngine`` at batch ``LM_BATCH`` on ``prompts`` (default
-    ``LM_PROMPTS``, ``LM_MAX_LEN``, ``LM_NEW_TOKENS``): a repeat bitwise,
-    no kernel launched; then served with deterministic algorithms off
-    (tokens per wall second, prefill and decode seconds) and profiled
-    (device activities a decode step)."""
+    ``LM_PROMPTS``, ``LM_MAX_LEN``, ``LM_NEW_TOKENS``): the first run
+    inside the context ``watch()`` returns, when given, and launching
+    exactly ``expect`` (default none), a repeat bitwise launching the
+    same; then served with deterministic algorithms off (tokens per wall
+    second, prefill and decode seconds) and profiled (device activities
+    a decode step)."""
+
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.lm import LMServingEngine, Request
@@ -3844,22 +3883,27 @@ def _serve_checked(ops, cfg, params, label, prompts=None, max_len=None,
     def requests():
         return _lm_requests(cfg.vocab, Request, prompts, new_tokens)
 
+    expect = expect or {}
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    done = engine().run(requests())
+    with (watch() if watch else contextlib.nullcontext()):
+        done = engine().run(requests())
     torch.cuda.synchronize()
     det_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.LAUNCH_COUNTS)
+    assert launches == expect, f"{label} launched {launches}"
     outputs = {r.uid: r.output for r in done}
     assert sorted(outputs) == list(range(len(prompts)))
     for r in done:
         assert len(r.output) == new_tokens and r.latency_s > 0
         assert all(0 <= t < cfg.vocab for t in r.output)
+    ops.reset_launch_counts()
     again = engine().run(requests())
     assert {r.uid: r.output for r in again} == outputs, "a repeat differs"
-    launches = dict(ops.LAUNCH_COUNTS)
-    assert not launches, f"{label} launched {launches}"
+    assert dict(ops.LAUNCH_COUNTS) == expect, \
+        f"{label}'s repeat launched {dict(ops.LAUNCH_COUNTS)}"
 
     torch.use_deterministic_algorithms(False)
     try:
@@ -4118,16 +4162,20 @@ class _RingWatch:
 
 
 def _f32_against_full(api, params, tokens, prompt, steps, length,
-                      label, embeds=None) -> dict:
-    """Prefill ``prompt`` tokens (after ``embeds``, a VLM's prefix, when
-    given), then ``steps`` teacher-forced decode steps; each step's
-    logits within ``LOGIT_TOL`` of the largest logit of one full forward
-    at that position (tests/test_decode.py:37).  Returns the worst error
-    and the caches' leaves."""
+                      label, embeds=None, frames=None) -> dict:
+    """Prefill ``prompt`` tokens (after ``embeds``, a VLM's prefix, or
+    beside ``frames``, an encoder-decoder's input, when given), then
+    ``steps`` teacher-forced decode steps; each step's logits within
+    ``LOGIT_TOL`` of the largest logit of one full forward at that
+    position (tests/test_decode.py:37; the encoder-decoder's full
+    forward is ``decode_train``).  Returns the worst error and the
+    caches' leaves."""
     from repro_torch.tree import leaves
 
     vocab = api.cfg.vocab
     prefix = {} if embeds is None else {"embeds": embeds}
+    if frames is not None:
+        prefix["frames"] = frames
     extra = 0 if embeds is None else embeds.shape[1]
     caches = api.init_caches(tokens.shape[0], length)
     with torch.no_grad():
@@ -4815,6 +4863,425 @@ def run_mla_phase(ops) -> None:
     line["phase_wall_s"] = time.perf_counter() - t_phase
     emit(line)
 
+# ---------------------------------------------------------------------------
+# Phase 18: the MoE family (olmoe_1b_7b, granite_moe_1b_a400m)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("olmoe_1b_7b", "granite_moe_1b_a400m")
+MOE_PARAMS = {"olmoe_1b_7b": 6_919_624_704,           # the reference's trees:
+              "granite_moe_1b_a400m": 1_334_887_424}  # param_count's and the
+MOE_MODEL_BYTES = {"olmoe_1b_7b": 13_839_249_408,     # norm scales
+                   "granite_moe_1b_a400m": 2_669_774_848}
+MOE_PROMPTS = (1024, 700, 333, 64)
+MOE_NEW_TOKENS = 32
+MOE_F32_PROMPT = 512
+MOE_F32_STEPS = 16
+MOE_F32_LAYERS = {"olmoe_1b_7b": 4, "granite_moe_1b_a400m": 24}
+MOE_TRAIN_ARCH = "olmoe_1b_7b"
+MOE_TRAIN_LAYERS = 3
+MOE_TRAIN_SEQ = 512
+MOE_TRAIN_PARAMS = 1_465_268_992
+MOE_TRAIN_MODEL_BYTES = 2_930_537_984
+
+
+class _DropWatch:
+    """While active, records each grouped MoE call's routing
+    (``moe.route_grouped``): its real tokens, their T K assignments and
+    how many were kept (the padded rows' are not counted)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig = moe, moe.route_grouped
+        self.calls = []
+
+    def __enter__(self):
+        self.mod.route_grouped = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_grouped = self.orig
+
+    def _record(self, cfg, p, xt, T):
+        out = self.orig(cfg, p, xt, T)
+        keep = out[5].reshape(-1, cfg.top_k)[:T]
+        self.calls.append((T, T * cfg.top_k, int(keep.sum())))
+        return out
+
+    def summary(self) -> dict:
+        return {"grouped_calls": len(self.calls),
+                "tokens": sum(c[0] for c in self.calls),
+                "assignments": sum(c[1] for c in self.calls),
+                "dropped": sum(c[1] - c[2] for c in self.calls),
+                "dropped_by_call": [c[1] - c[2] for c in self.calls]}
+
+
+def _moe_f32(ops, arch, cfg, params, dev) -> dict:
+    """The weights in float32 at ``MOE_F32_LAYERS[arch]`` layers with
+    ``capacity_factor = E / K`` (C_g = G: no assignment can drop, so the
+    routed prefill, the dense decode and the full forward compute one
+    function): a ``MOE_F32_PROMPT``-token prefill and ``MOE_F32_STEPS``
+    teacher-forced decode steps against a full forward
+    (``_f32_against_full``), every grouped call keeping all T K of its
+    assignments."""
+    from repro_torch.models import build
+    from repro_torch.tree import tree_map
+
+    n = MOE_F32_LAYERS[arch]
+    factor = cfg.n_experts / cfg.top_k
+    cfg32 = cfg.with_(dtype="float32", n_layers=n, capacity_factor=factor)
+    p32 = tree_map(lambda x: x.float(),
+                   dict(params, layers=params["layers"][:n]))
+    total = MOE_F32_PROMPT + MOE_F32_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, total)), device=dev)
+    ops.reset_launch_counts()
+    with _DropWatch() as drops:
+        rec, caches = _f32_against_full(build(cfg32), p32, tokens,
+                                        MOE_F32_PROMPT, MOE_F32_STEPS,
+                                        total + 8, f"lm_moe {arch}")
+    kept = drops.summary()
+    assert kept["grouped_calls"] == 2 * n and kept["dropped"] == 0, kept
+    del p32, caches
+    rec.update(layers=n, capacity_factor=factor,
+               flash_launches=dict(ops.LAUNCH_COUNTS),
+               grouped_calls=kept["grouped_calls"],
+               assignments=kept["assignments"], kept=kept["assignments"])
+    return rec
+
+
+def _moe_train(ops, dev) -> dict:
+    """The trainer at ``olmoe_1b_7b``'s full width cut to
+    ``MOE_TRAIN_LAYERS`` layers, m = 2 learners of 1 x 512 tokens a round
+    from ``token_stream(seed=0)`` (``_cut_depth_train``); the loss
+    carries the aux loss, nonzero on the first batch from seed 0."""
+    from repro_torch.configs import get
+    from repro_torch.data.streams import token_stream
+    from repro_torch.models import build
+
+    cfg = get(MOE_TRAIN_ARCH).with_(n_layers=MOE_TRAIN_LAYERS)
+    shape = (TRAIN_M, 1, MOE_TRAIN_SEQ)
+    batches = [{"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                          device=dev).reshape(shape),
+                "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                          device=dev).reshape(shape)}
+               for toks, labels in token_stream(
+                   CUT_TRAIN_T, TRAIN_M, MOE_TRAIN_SEQ, cfg.vocab, seed=0)]
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        _, aux = api.forward(params, {"tokens": batches[0]["tokens"][0]})
+    aux = float(aux)
+    assert np.isfinite(aux) and aux > 0, aux
+    del params
+    torch.cuda.empty_cache()
+    rec = _cut_depth_train(ops, "lm_moe", cfg, batches, dev,
+                           MOE_TRAIN_PARAMS, MOE_TRAIN_MODEL_BYTES)
+    rec["reduced"] = {"n_layers": f"{get(MOE_TRAIN_ARCH).n_layers} -> "
+                                  f"{MOE_TRAIN_LAYERS}"}
+    rec["aux_loss_round_1"] = aux
+    return rec
+
+
+def run_moe_phase(ops, totals, flashmod, ref) -> dict:
+    """Phase 18 (``lm_moe``): ``olmoe_1b_7b`` (16 layers, d 2048, 16
+    heads of 128, ``qk_norm``, 64 experts, top 8) and then
+    ``granite_moe_1b_a400m`` (24 layers, d 1024, 16 heads over 8 kv heads
+    of 64, 32 experts, top 8, tied embeddings), bf16, ``use_flash=True``,
+    full width and depth from seed 0, one at a time: ``LMServingEngine``
+    at batch 4 on ``MOE_PROMPTS``, 32 new tokens, under
+    ``_serve_checked`` with every flash layer held to the plain attention
+    on its own q, k, v and each prefill layer's dropped assignments
+    counted (capacity factor 1.25); ``flash`` timed at the prefill's
+    shape; the float32 decode against a full forward (``_moe_f32``);
+    ``olmoe_1b_7b``'s trainer at 3 layers.  Returns the ``flash`` kernels
+    line's ``lm_moe_shapes``."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import model_bytes
+    from repro_torch.models import build, count_params
+
+    dev = device_mod.resolve()
+    shapes = {}
+    for arch in MOE_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get(arch).with_(use_flash=True)
+        torch.cuda.empty_cache()
+        params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        assert count_params(params) == MOE_PARAMS[arch]
+        assert model_bytes(params) == MOE_MODEL_BYTES[arch]
+        line = {"phase": "lm_moe", "arch": arch, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+                "experts": [cfg.n_experts, cfg.top_k, cfg.expert_ff],
+                "capacity_factor": cfg.capacity_factor,
+                "moe_group_size": cfg.moe_group_size, "dtype": cfg.dtype,
+                "params": MOE_PARAMS[arch]}
+        flash_layers, drops = _FlashAgainstPlain(), _DropWatch()
+
+        @contextlib.contextmanager
+        def watch():
+            with flash_layers, drops:
+                yield
+
+        line["serve"] = _serve_checked(
+            ops, cfg, params, f"lm_moe {arch} serving", MOE_PROMPTS,
+            max(MOE_PROMPTS) + MOE_NEW_TOKENS, MOE_NEW_TOKENS,
+            expect={"flash": cfg.n_layers}, watch=watch)
+        assert flash_layers.calls == cfg.n_layers, flash_layers.calls
+        assert flash_layers.seqs == {max(MOE_PROMPTS)}, flash_layers.seqs
+        totals["flash"] = totals.get("flash", 0) + cfg.n_layers
+        routed = drops.summary()
+        assert routed["grouped_calls"] == cfg.n_layers, routed
+        assert routed["tokens"] == cfg.n_layers * LM_BATCH * max(MOE_PROMPTS)
+        line["serve"].update(
+            flash_layers_checked=flash_layers.calls,
+            flash_layer_max_abs_err=flash_layers.max_err,
+            flash_layer_max_ulps=flash_layers.max_ulps,
+            flash_layer_outputs_differing=flash_layers.differ,
+            flash_layer_outputs=flash_layers.of,
+            prefill_assignments=routed["assignments"],
+            prefill_dropped=routed["dropped"],
+            prefill_dropped_by_layer=routed["dropped_by_call"])
+        BH = LM_BATCH * cfg.n_heads
+        ms, plain, library, (bms, by), gemm, _ = flash_timing(
+            flashmod, ref, BH, max(MOE_PROMPTS), cfg.hd, LM_BATCH, dev,
+            torch.Generator().manual_seed(0))
+        shapes[arch] = {
+            "shape": [BH, max(MOE_PROMPTS), cfg.hd],
+            "launches": cfg.n_layers, "ms": ms["ms"],
+            "device_ms": ms["device_ms"], "plain_ms": plain["ms"],
+            "plain_device_ms": plain["device_ms"],
+            "library_ms": library["ms"],
+            "library_device_ms": library["device_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "attention_tflops": gemm * 2 / ms["device_ms"] / 1e9}
+        line["flash"] = shapes[arch]
+        line["f32"] = _moe_f32(ops, arch, cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        if arch == MOE_TRAIN_ARCH:
+            line["train"] = _moe_train(ops, dev)
+            torch.cuda.empty_cache()
+        line["arch_wall_s"] = time.perf_counter() - t_arch
+        emit(line)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the encoder-decoder (whisper_large_v3)
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper_large_v3"
+AUDIO_PARAMS = 1_545_835_520      # the reference's tree: param_count's
+AUDIO_MODEL_BYTES = 3_091_671_040  # 1,534,607,360, the position table, biases
+AUDIO_PROMPT = 4                  # decoder prompt tokens a sample
+AUDIO_NEW_TOKENS = 32
+AUDIO_MAX_LEN = 448               # Whisper's decoder context
+AUDIO_F32_STEPS = 31
+AUDIO_TRAIN_LAYERS = 4            # encoder and decoder layers each
+AUDIO_TRAIN_SEQ = 256
+AUDIO_TRAIN_PARAMS = 260_613_120
+AUDIO_TRAIN_MODEL_BYTES = 521_226_240
+
+
+def _audio_inputs(cfg, B: int, S: int, dev, seed: int = 0) -> dict:
+    """``B`` samples of ``n_audio_frames`` seeded frame embeddings (float32
+    normals, the reference's stub frontend; cast to the model's dtype
+    inside) and ``S`` decoder tokens."""
+    rng = np.random.default_rng(seed)
+    frames = rng.normal(size=(B, cfg.n_audio_frames, cfg.d_model))
+    return {"frames": torch.as_tensor(frames.astype(np.float32),
+                                      device=dev),
+            "tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                      device=dev)}
+
+
+def _audio_generate(api, params, batch) -> tuple:
+    """``launch/serve.py``'s steps on one batch: ``make_prefill_step``
+    (the encoder, the decoder prompt, the caches of ``AUDIO_MAX_LEN``
+    slots), then ``AUDIO_NEW_TOKENS - 1`` greedy ``make_decode_step``
+    calls, each step's tokens read back as an engine reads them.
+    ``api.prefill`` / ``api.decode`` are the two steps.  Returns (tokens
+    a step, the prefill's logits)."""
+    cfg = api.cfg
+    B, S = batch["tokens"].shape
+    caches = api.init_caches(B, AUDIO_MAX_LEN)
+    with torch.no_grad():
+        logits, caches = api.prefill(params, batch, caches)
+        nxt = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(
+            torch.int32)
+        toks = [nxt[:, 0].tolist()]
+        for step in range(AUDIO_NEW_TOKENS - 1):
+            nxt, caches = api.decode(params, caches, nxt, S + step)
+            toks.append(nxt[:, 0].tolist())
+    return toks, logits
+
+
+def _audio_serve(ops, cfg, params, dev) -> dict:
+    """Phase 19's serving run at batch 4 (see ``run_audio_phase``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import build
+
+    api = dataclasses.replace(build(cfg), prefill=make_prefill_step(cfg),
+                              decode=make_decode_step(cfg))
+    batch = _audio_inputs(cfg, LM_BATCH, AUDIO_PROMPT, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, logits = _audio_generate(api, params, batch)
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    assert all(0 <= t < cfg.vocab for row in toks for t in row)
+    again, again_logits = _audio_generate(api, params, batch)
+    assert again == toks and torch.equal(again_logits, logits), \
+        "lm_audio: a repeat differs"
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    del again_logits, logits
+    torch.use_deterministic_algorithms(False)
+    try:
+        holder = types.SimpleNamespace(api=api)
+        clock = _StepClock(holder)
+        t0 = time.perf_counter()
+        served, _ = _audio_generate(holder.api, params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _audio_generate(api, params, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(True)
+    steps = _steps(prof)
+    dec = sorted(steps, key=lambda x: x["kernels"])[:-1]
+    generated = LM_BATCH * len(toks)
+    prefill_s, decode_s = clock.seconds("prefill"), clock.seconds("decode")
+    return {"batch": LM_BATCH, "frames": cfg.n_audio_frames,
+            "prompt_tokens": AUDIO_PROMPT, "new_tokens": AUDIO_NEW_TOKENS,
+            "max_len": AUDIO_MAX_LEN, "kernel_launches": {},
+            "max_memory_allocated": peak, "repeat_bitwise": True,
+            "generated_tokens": generated, "wall_s": secs,
+            "tokens_per_wall_s": generated / secs,
+            "same_tokens": served == toks, "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "decode_ms_per_step": decode_s * 1e3 / (AUDIO_NEW_TOKENS - 1),
+            "steps_traced": len(steps),
+            "decode_kernels_per_step_median": sorted(
+                x["kernels"] for x in dec)[len(dec) // 2] if dec else None,
+            "decode_device_ms_per_step_median": sorted(
+                x["device_s"] * 1e3 for x in dec)[len(dec) // 2]
+            if dec else None}
+
+
+def _audio_layer_against_cpu(ops, cfg, params, dev) -> dict:
+    """The first encoder layer at full width in float32 over 1,500 seeded
+    frames (the sinusoidal positions, the layer, the final norm:
+    ``encode`` at one layer) on the card against the CPU, within the
+    parity pair."""
+    from repro_torch.models import encdec
+    from repro_torch.tree import tree_map
+
+    cfg1 = cfg.with_(encoder_layers=1, n_layers=1, dtype="float32")
+    p = tree_map(lambda t: t.float(), {
+        "enc_blocks": params["enc_blocks"][:1],
+        "enc_norm": params["enc_norm"]})
+    frames = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(1, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = encdec.encode(p, cfg1, frames.to(dev))
+        want = encdec.encode(tree_map(lambda t: t.cpu(), p), cfg1, frames)
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    err = close(got.cpu(), want,
+                "lm_audio: the encoder layer on the card vs the CPU")
+    return {"frames": cfg.n_audio_frames, "max_abs_err": err}
+
+
+def _audio_train(ops, dev) -> dict:
+    """The trainer at ``whisper_large_v3``'s full width cut to 4 encoder
+    and 4 decoder layers, m = 2 learners of 1 x (1,500 frames + 256
+    tokens) a round: tokens from ``token_stream(seed=0)``, the frames
+    seeded normals (``_cut_depth_train``)."""
+    from repro_torch.configs import get
+    from repro_torch.data.streams import token_stream
+
+    cfg = get(AUDIO_ARCH).with_(n_layers=AUDIO_TRAIN_LAYERS,
+                                encoder_layers=AUDIO_TRAIN_LAYERS)
+    shape = (TRAIN_M, 1, AUDIO_TRAIN_SEQ)
+    rng = np.random.default_rng(0)
+    batches = []
+    for toks, labels in token_stream(CUT_TRAIN_T, TRAIN_M, AUDIO_TRAIN_SEQ,
+                                     cfg.vocab, seed=0):
+        fr = rng.normal(size=(TRAIN_M, 1, cfg.n_audio_frames, cfg.d_model))
+        batches.append({
+            "tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                      device=dev).reshape(shape),
+            "labels": torch.as_tensor(labels, dtype=torch.int64,
+                                      device=dev).reshape(shape),
+            "frames": torch.as_tensor(fr.astype(np.float32), device=dev)})
+    rec = _cut_depth_train(ops, "lm_audio", cfg, batches, dev,
+                           AUDIO_TRAIN_PARAMS, AUDIO_TRAIN_MODEL_BYTES)
+    full = get(AUDIO_ARCH)
+    rec["reduced"] = {
+        "n_layers": f"{full.n_layers} -> {AUDIO_TRAIN_LAYERS}",
+        "encoder_layers": f"{full.encoder_layers} -> {AUDIO_TRAIN_LAYERS}"}
+    rec["frames_per_sequence"] = cfg.n_audio_frames
+    return rec
+
+
+def run_audio_phase(ops) -> None:
+    """Phase 19 (``lm_audio``): ``whisper_large_v3`` at full width and
+    depth (32 encoder and 32 decoder layers, d 1280, 20 heads of 64,
+    LayerNorm, GELU, learned decoder positions, tied embeddings, bf16,
+    ``use_flash=False``, the config's: the reference refuses its
+    non-causal flash at 1,500 frames; weights drawn on the card from seed
+    0): at batch 4 of 1,500 seeded frame embeddings and 4 decoder
+    tokens, ``make_prefill_step`` and 31 greedy ``make_decode_step``
+    calls with caches of 448 slots, no kernel of the port launched, a
+    repeat bitwise, then timed with deterministic algorithms off
+    (``_audio_serve``); one encoder layer on the card against the CPU;
+    the same weights in float32, a 4-token prefill and 31 teacher-forced
+    decode steps against ``decode_train``; the trainer at 4 + 4
+    layers."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import get
+    from repro_torch.core.protocol import model_bytes
+    from repro_torch.models import build, count_params
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get(AUDIO_ARCH)
+    assert not cfg.use_flash
+    dev = device_mod.resolve()
+    torch.cuda.empty_cache()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    assert count_params(params) == AUDIO_PARAMS
+    assert model_bytes(params) == AUDIO_MODEL_BYTES
+    line = {"phase": "lm_audio", "arch": AUDIO_ARCH,
+            "layers": [cfg.encoder_layers, cfg.n_layers],
+            "d_model": cfg.d_model, "heads": cfg.n_heads, "hd": cfg.hd,
+            "dtype": cfg.dtype, "params": AUDIO_PARAMS,
+            "serve": _audio_serve(ops, cfg, params, dev),
+            "layer_vs_cpu": _audio_layer_against_cpu(ops, cfg, params, dev)}
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    inputs = _audio_inputs(cfg, 1, AUDIO_PROMPT + AUDIO_F32_STEPS, dev,
+                           seed=2)
+    ops.reset_launch_counts()
+    line["f32"], caches = _f32_against_full(
+        build(cfg.with_(dtype="float32")), p32, inputs["tokens"],
+        AUDIO_PROMPT, AUDIO_F32_STEPS, AUDIO_MAX_LEN, "lm_audio",
+        frames=inputs["frames"])
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    del p32, caches
+    torch.cuda.empty_cache()
+    line["train"] = _audio_train(ops, dev)
+    torch.cuda.empty_cache()
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(line)
+
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -4946,6 +5413,10 @@ def _drive(refs) -> int:
     vlm_shapes = run_vlm_phase(ops, totals, flash, ref)
     torch.cuda.empty_cache()
     run_mla_phase(ops)
+    torch.cuda.empty_cache()
+    moe_shapes = run_moe_phase(ops, totals, flash, ref)
+    torch.cuda.empty_cache()
+    run_audio_phase(ops)
 
     tuned_op = {"sv_predict": "sv_predict", "quadform": "quadform",
                 "primal_step_rff": "rff_step",
@@ -5007,6 +5478,8 @@ def _drive(refs) -> int:
                else {}),
             # flash at qwen2_vl_2b's prefill shape (phase 16)
             **({"lm_vlm_shapes": vlm_shapes} if name == "flash" else {}),
+            # flash at the MoE configs' prefill shapes (phase 18)
+            **({"lm_moe_shapes": moe_shapes} if name == "flash" else {}),
             # the geometry phase 2's search chose at the main path's shape
             **({"autotune": {k: tuned[tuned_op[name]][k] for k in (
                 "choice", "source", "times_ms")}} if name in tuned_op

@@ -4,14 +4,11 @@ One module per architecture defines ``CONFIG`` with the reference's
 exact sizes and registers it.  ``get(name)`` returns the full config;
 ``get_smoke(name)`` the reduced same-family variant the CPU tests use.
 
-Only the architectures in ``PORTED`` have a module here.  ``get`` of
-another architecture of the reference raises ``NotImplementedError``
-(ROADMAP.md, "Modules still to port"): it never hands out a config the
-port's model cannot run.  What is left is the MoE family
-(``olmoe_1b_7b``, ``granite_moe_1b_a400m``) and the encoder-decoder
-(``whisper_large_v3``); the VLM (``qwen2_vl_2b``, M-RoPE) and MLA
-(``minicpm3_4b``) configs run.  ``all_arch_ids`` is the reference's full id
-list, ported or not.
+Every architecture of the reference has a module here and is in
+``PORTED``: the dense, MoE (``olmoe_1b_7b``, ``granite_moe_1b_a400m``),
+SSM, hybrid, VLM and MLA decoders and the encoder-decoder
+(``whisper_large_v3``).  ``get`` of a name the reference does not know
+raises ``KeyError``.  ``all_arch_ids`` is the reference's full id list.
 """
 from __future__ import annotations
 
@@ -37,7 +34,8 @@ ARCH_IDS: List[str] = [
 
 #: The architectures the port runs.
 PORTED = ("qwen2_5_3b", "mamba2_130m", "granite_8b", "qwen3_14b",
-          "paper_kernel", "recurrentgemma_9b", "qwen2_vl_2b", "minicpm3_4b")
+          "paper_kernel", "recurrentgemma_9b", "qwen2_vl_2b", "minicpm3_4b",
+          "olmoe_1b_7b", "granite_moe_1b_a400m", "whisper_large_v3")
 
 # CLI aliases (dashes as given in the reference)
 ALIASES = {
@@ -65,10 +63,6 @@ def get(name: str) -> ModelConfig:
     name = ALIASES.get(name, name)
     if name not in _REGISTRY:
         if name not in PORTED:
-            if name in ARCH_IDS:
-                raise NotImplementedError(
-                    f"{name} is not ported to PyTorch yet (ROADMAP.md, "
-                    f"'Modules still to port'); ported: {PORTED}")
             raise KeyError(f"unknown architecture {name!r}")
         importlib.import_module(f"{__package__}.{name}")
     return _REGISTRY[name]

@@ -7,11 +7,15 @@ NamedTuples of tensors on ``device``: floats as float32, ids and
 counters as int32, exactly as the reference stores them.
 
 ``lm_params`` carries an LM parameter tree across, whatever its leaves
-(an MLA layer's ``w_dq`` .. ``wo`` as a GQA layer's; each leaf keeps its
+(an MLA layer's ``w_dq`` .. ``wo`` as a GQA layer's, a MoE layer's
+router and stacked experts; each leaf keeps its
 float32 or bfloat16 type, so a bf16 Mamba-2 tree keeps its float32
 ``A_log``, ``D`` and ``dt_bias`` and a bf16 hybrid its float32
 ``Lambda``), ``lm_caches`` the LM's prefill and decode caches (over
-stages and units of mixed kinds, as ``lm_params``), ``protocol_state`` a protocol's carry and
+stages and units of mixed kinds, as ``lm_params``), ``encdec_params`` /
+``encdec_caches`` the encoder-decoder's tree and its decoder caches
+(``lm_params`` / ``lm_caches`` hand an encoder-decoder config to
+them), ``protocol_state`` a protocol's carry and
 ``train_state`` the LM trainer's whole state; ``to_numpy`` reads the
 port's structures back, bfloat16 widened to float32 (exact).
 """
@@ -123,6 +127,8 @@ def lm_params(params: Any, cfg, device=None, stacked: bool = False) -> dict:
     ``layers``, one dict per layer in pattern order (``_layers``).  With
     ``stacked`` every leaf carries a leading learner axis first (the
     trainer's layout).  ``device=None`` is the CUDA card."""
+    if cfg.is_encdec:
+        return encdec_params(params, cfg, device, stacked)
     dev = device_mod.resolve(device)
     layers = _layers(cfg, params["stages"])
     repeat_axis = 1 if stacked else 0
@@ -148,16 +154,56 @@ def lm_caches(caches: Any, cfg, device=None) -> list:
     MLA), ``SSMState`` or ``LRUState`` a layer in pattern order, each leaf in its own type
     (``slot_pos`` as int32), so a prefill or a decode can start from a
     JAX state."""
+    if cfg.is_encdec:
+        return encdec_caches(caches, cfg, device)
     dev = device_mod.resolve(device)
     out = []
     for s, r, j, kind in _layers(cfg, caches):
         stack = caches[s][f"b{j}"]
-        if kind == "attn" and cfg.attn_kind == "mla":
-            kind = "mla"
+        if kind in ("attn", "moe"):
+            kind = "mla" if cfg.attn_kind == "mla" else "attn"
         fields = _CACHES[kind]._fields
         out.append(_CACHES[kind](*(
             _array(np.take(np.asarray(getattr(stack, f)), r, axis=0), dev)
             for f in fields)))
+    return out
+
+
+def encdec_params(params: Any, cfg, device=None,
+                  stacked: bool = False) -> dict:
+    """The port's encoder-decoder parameters from the reference's tree
+    (``init_encdec``): ``enc_blocks`` / ``dec_blocks``, stacked by
+    ``vmap`` there, unstacked into one dict a layer; every other entry
+    leaf by leaf.  ``stacked``: a leading learner axis on every leaf."""
+    dev = device_mod.resolve(device)
+    axis = 1 if stacked else 0
+    counts = {"enc_blocks": cfg.encoder_layers, "dec_blocks": cfg.n_layers}
+    out = {}
+    for key, tree in params.items():
+        if key in counts:
+            tree = _tree(tree, np.asarray)
+            out[key] = [_tree(tree, lambda x, r=r: _leaf(
+                np.take(x, r, axis=axis), dev)) for r in range(counts[key])]
+        else:
+            out[key] = _tree(tree, lambda x: _leaf(x, dev))
+    return out
+
+
+def encdec_caches(caches: Any, cfg, device=None) -> list:
+    """The port's decoder caches from the reference's
+    (``init_dec_caches`` / ``prefill_decoder`` / ``decode_step_encdec``:
+    ``self`` a ``KVCache`` and ``cross_k`` / ``cross_v``, each stacked
+    over the decoder layers): one dict a layer."""
+    dev = device_mod.resolve(device)
+    self_c = caches["self"]
+    out = []
+    for r in range(cfg.n_layers):
+        def take(x, r=r):
+            return _array(np.take(np.asarray(x), r, axis=0), dev)
+        out.append({"self": KVCache(*(take(getattr(self_c, f))
+                                      for f in KVCache._fields)),
+                    "cross_k": take(caches["cross_k"]),
+                    "cross_v": take(caches["cross_v"])})
     return out
 
 

@@ -11,7 +11,10 @@ forwards to the engine; none of them can change the protocol view.
 
 ``make_prefill_step`` / ``make_decode_step`` are one-line wrappers over
 the LM api of ``models.build`` (the decoded token is the argmax over
-the first ``cfg.vocab`` logits).
+the first ``cfg.vocab`` logits), for every family: an audio model's
+batch holds ``frames`` beside its decoder ``tokens``, which
+``serving.lm.LMServingEngine`` (tokens only, as the reference's) does
+not build, so the encoder-decoder is served through these steps.
 """
 from __future__ import annotations
 

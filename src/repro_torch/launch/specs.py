@@ -10,8 +10,10 @@ Shapes (from the assignment):
 Where the reference returns ``jax.ShapeDtypeStruct``s, these functions
 return tensors on the ``meta`` device: a shape and a dtype, no storage
 on any device.  The parameter and cache shapes come from the port's own
-``transformer.init_lm`` / ``init_caches`` run on ``meta`` (a generator
-whose draws land there), so they are the production trees.
+initializers (``transformer.init_lm`` / ``init_caches``, or
+``encdec.init_encdec`` / ``init_dec_caches`` for the encoder-decoder)
+run on ``meta`` (a generator whose draws land there), so they are the
+production trees.
 
 The long-context policy (``variant_for``): ``long_500k`` needs
 sub-quadratic attention, so a dense, VLM or audio architecture runs its
@@ -25,7 +27,7 @@ from typing import Any, Dict
 
 import torch
 
-from ..models import transformer
+from ..models import encdec, transformer
 from ..models.config import ModelConfig
 from ..tree import tree_map
 
@@ -91,6 +93,8 @@ def prefill_batch_specs(cfg: ModelConfig, shape: Dict[str, Any]):
 
 def cache_specs(cfg: ModelConfig, B: int, length: int) -> list:
     """``init_caches(B, length)``'s tree, one cache a layer, on meta."""
+    if cfg.is_encdec:
+        return encdec.init_dec_caches(cfg, B, length, device=META)
     return transformer.init_caches(cfg, B, length, device=META)
 
 
@@ -105,6 +109,8 @@ class _MetaGenerator(torch.Generator):
 
 def param_specs(cfg: ModelConfig) -> dict:
     """``build(cfg).init``'s tree on meta."""
+    if cfg.is_encdec:
+        return encdec.init_encdec(_MetaGenerator(), cfg)
     return transformer.init_lm(_MetaGenerator(), cfg)
 
 

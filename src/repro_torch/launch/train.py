@@ -78,7 +78,10 @@ def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
                     opt_cfg: OptimizerConfig):
     """``train_step(state, batch) -> (state, mean loss)``; ``batch``
     holds ``tokens`` and ``labels`` of shape (m, B, S), and a VLM's
-    ``embeds`` (m, B, vision_tokens, d) before them."""
+    ``embeds`` (m, B, vision_tokens, d) before them or an audio model's
+    ``frames`` (m, B, n_audio_frames, d).  The loss is ``build(cfg).loss``:
+    a MoE model's carries its aux loss, an encoder-decoder's is
+    ``encdec_loss``."""
     api = build(cfg)
     opt = make_optimizer(opt_cfg)
 
@@ -167,6 +170,10 @@ def main(argv=None):
         if cfg.arch_type == "vlm":
             batch["embeds"] = torch.as_tensor(np.asarray(
                 rng.normal(size=(m, args.batch, cfg.vision_tokens,
+                                 cfg.d_model)), np.float32), device=dev)
+        if cfg.arch_type == "audio":
+            batch["frames"] = torch.as_tensor(np.asarray(
+                rng.normal(size=(m, args.batch, cfg.n_audio_frames,
                                  cfg.d_model)), np.float32), device=dev)
         state, loss = step_fn(state, batch)
         print(f"step {t:4d} loss={float(loss):8.4f} "

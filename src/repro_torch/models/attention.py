@@ -42,7 +42,11 @@ or rebuilds every key and value (``absorbed=False``, the reference's
 oracle).  It too writes the cache in place, a ring of L slots under a
 window.
 
-Cross attention raises ``NotImplementedError`` (ROADMAP.md).
+Cross attention (the Whisper decoder, ``cross_init`` /
+``cross_precompute`` / ``cross_forward``): queries from the decoder,
+keys and values projected once from the encoder's output, no mask, no
+positions; one query token takes the grouped ``_sdpa_grouped`` (decode),
+more take the flat-H ``_sdpa``, as the reference's.
 """
 from __future__ import annotations
 
@@ -127,6 +131,16 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
+def cross_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype),
+    }
+
+
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     if cfg.attn_kind == "mla":
         return mla_init(gen, cfg, dtype)
@@ -151,8 +165,17 @@ def _flash_sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     folds (B, H) into the kernel's leading axis (a contiguous copy: at
     B = 1 the fold is a strided view, which the kernel refuses).  The
     kernel masks the ragged edge itself, so S needs no padding: its rows
-    are the rows of the reference's padded call."""
+    are the rows of the reference's padded call.
+
+    A non-causal call whose S is above 128 and not a multiple of 128
+    raises ``ValueError``: the reference pads S to its 128-row blocks,
+    where the padded keys would leak into a non-causal softmax, and
+    asserts (``src/repro/models/attention.py:141``).  The port's kernel
+    could take it; the port refuses what the reference refuses."""
     B, S, H, hd = q.shape
+    if not causal and S > 128 and S % 128:
+        raise ValueError(f"non-causal flash attention needs S <= 128 or a "
+                         f"multiple of 128, not {S}")
     K = k.shape[2]
     if K != H:
         k = torch.repeat_interleave(k, H // K, dim=2)
@@ -426,3 +449,33 @@ def mla_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, pos: int,
         y = torch.einsum("bhL,bLhd->bhd", w, v_all)
     y = y.reshape(B, 1, H * vd).to(x_t.dtype)
     return dense(p["wo"], y), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the Whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) attends to every encoder frame: enc_k / enc_v (B, F,
+    K, hd) from ``cross_precompute``.  S == 1 (decode) takes the grouped
+    form, no kv repeat; S > 1 the flat-H one."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    if S == 1:
+        y = _sdpa_grouped(q, enc_k, enc_v, None, _inv_sqrt(hd))
+    else:
+        y = _sdpa(q, enc_k, enc_v, None, _inv_sqrt(hd))
+    return dense(p["wo"], y.reshape(B, S, cfg.n_heads * hd))
+
+
+def cross_precompute(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
+    """The encoder output's keys and values, (B, F, K, hd) each: once a
+    prefill, kept in the decoder's caches."""
+    B, L, _ = enc_out.shape
+    hd = cfg.hd
+    k = dense(p["wk"], enc_out).reshape(B, L, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], enc_out).reshape(B, L, cfg.n_kv_heads, hd)
+    return k, v

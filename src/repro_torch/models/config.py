@@ -3,10 +3,9 @@
 ``smoke()``, so a configuration means the same model on both sides).
 
 One ``ModelConfig`` covers all six architecture families of the
-reference: dense / MoE / SSM / hybrid / VLM / audio.  The port runs the
-dense, SSM and hybrid decoders so far (``models/transformer.py``); the
-fields of the other families are kept so configurations stay
-comparable, and a model that needs them raises.  Fields that only steer XLA (``remat*``,
+reference: dense / MoE / SSM / hybrid / VLM / audio, all of which the
+port runs (the decoders in ``models/transformer.py``, the
+encoder-decoder in ``models/encdec.py``).  Fields that only steer XLA (``remat*``,
 ``shard_activations``, ``act_batch_axes``, ``unroll_scan``) are kept
 and ignored.
 """

@@ -9,8 +9,8 @@ Initializers take an explicit ``torch.Generator`` and draw on its
 device.  They follow the reference's scales, not its numbers: JAX's
 keys and PyTorch's generators give different draws from the same seed,
 so the tests carry the reference's parameters across
-(``convert.lm_params``).  ``constrain`` waits for MoE and
-``sinusoidal_pos`` for the encoder-decoder family.
+(``convert.lm_params``).  ``constrain`` is the identity: the port has
+no GSPMD to take a sharding constraint.
 """
 from __future__ import annotations
 
@@ -33,6 +33,15 @@ def expand_left(v: torch.Tensor, ndim: int) -> torch.Tensor:
     broadcast against a rank-``ndim`` activation is explicit, as the
     reference's."""
     return v.reshape((1,) * (ndim - 1) + tuple(v.shape))
+
+
+def constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """The identity.  The reference's ``constrain``
+    (``src/repro/models/layers.py:25``) pins a GSPMD sharding when it
+    traces under a mesh and is a no-op on one device; the port runs one
+    card a model and has no GSPMD, so ``spec`` is ignored."""
+    del spec
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +178,17 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq_len: int, d: int, dtype, device=None) -> torch.Tensor:
+    """(seq_len, d) ``[sin, cos]`` of pos / 10000^(2 i / d), i < d / 2:
+    the angles in float32 from integer positions, as the reference's
+    (its CPU ``sin`` / ``cos`` are XLA's, so the two agree to a few
+    float32 ulps, not bitwise)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / (10_000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -13,21 +13,24 @@ or the fixed-size state of a recurrent block (``ssm.SSMState``,
 ``rglru.LRUState``), replaced by the new state at each call.
 
 Four entry points, as the reference's:
-  forward_lm   -- full-sequence logits (+ an aux loss of 0)
+  forward_lm   -- full-sequence logits (+ the MoE aux loss, summed over
+                  the layers)
   prefill      -- full-sequence forward that also fills the caches
   decode_step  -- one token against the caches
-  lm_loss      -- the next-token cross-entropy (training)
+  lm_loss      -- the next-token cross-entropy plus the aux loss
 
-Three block kinds run: ``attn`` (the dense decoder, local attention
+Four block kinds run: ``attn`` (the dense decoder, local attention
 when ``cfg.window > 0``; grouped-query attention with RoPE or M-RoPE, or
-MLA with its latent cache, ``MLACache``), ``ssm`` (Mamba-2,
-``models/ssm.py``; no positions, an aux loss of 0) and ``rglru`` (the
-Griffin recurrent block with its MLP, ``models/rglru.py``), in any
-pattern of units and stages (``recurrentgemma_9b``: (rglru, rglru,
-attn) x 12, then (rglru, rglru)).  A VLM's ``embeds`` (B, vision_tokens,
-d) go before the tokens' embeddings (``qwen2_vl_2b``).  The ``moe`` kind
-and the encoder-decoder family raise ``NotImplementedError``
-(ROADMAP.md).
+MLA with its latent cache, ``MLACache``), ``moe`` (the same attention,
+then a mixture of experts, ``models/moe.py``: the grouped routed path
+with its aux loss on the full-sequence paths, the capacity-free dense
+form in decode), ``ssm`` (Mamba-2, ``models/ssm.py``; no positions, an
+aux loss of 0) and ``rglru`` (the Griffin recurrent block with its MLP,
+``models/rglru.py``), in any pattern of units and stages
+(``recurrentgemma_9b``: (rglru, rglru, attn) x 12, then (rglru,
+rglru)).  A VLM's ``embeds`` (B, vision_tokens, d) go before the
+tokens' embeddings (``qwen2_vl_2b``).  The encoder-decoder family has
+its own assembly, ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
@@ -53,17 +57,15 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 #: the block kinds the port runs
-PORTED_KINDS = frozenset(("attn", "ssm", "rglru"))
+PORTED_KINDS = frozenset(("attn", "moe", "ssm", "rglru"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's decoder does not run yet."""
-    if cfg.is_encdec:
-        raise attn._not_ported("the encoder-decoder family")
+    """Raise for what the port's decoder does not run."""
     kinds = set(cfg.pattern)
     if kinds - PORTED_KINDS:
         raise attn._not_ported(f"block kinds {sorted(kinds - PORTED_KINDS)}")
-    if "attn" in kinds and cfg.attn_kind not in ("gqa", "mla"):
+    if kinds & {"attn", "moe"} and cfg.attn_kind not in ("gqa", "mla"):
         raise attn._not_ported(f"attention kind {cfg.attn_kind!r}")
 
 
@@ -88,12 +90,16 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
                 "rglru": rglru_mod.rglru_init(gen, cfg, dt),
                 "norm2": norm_init(cfg.norm_kind, d, dt, gen.device),
                 "mlp": mlp_init(gen, d, cfg.d_ff, dt, cfg.act)}
-    return {
+    out = {
         "norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
         "attn": attn.attn_init(gen, cfg, dt),
         "norm2": norm_init(cfg.norm_kind, d, dt, gen.device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dt, cfg.act),
     }
+    if kind == "moe":
+        out["moe"] = moe_mod.moe_init(gen, cfg, dt)
+    else:
+        out["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, cfg.act)
+    return out
 
 
 def _zero_aux(x: torch.Tensor) -> torch.Tensor:
@@ -117,6 +123,9 @@ def block_forward(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         x = x + attn.gqa_forward(cfg, p["attn"], h, positions,
                                  window=cfg.window)
     h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
+    if kind == "moe":
+        y, aux = moe_mod.moe_forward(cfg, p["moe"], h)
+        return x + y, aux
     return x + mlp(p["mlp"], h, cfg.act), _zero_aux(x)
 
 
@@ -203,6 +212,9 @@ def block_prefill(cfg: ModelConfig, kind: str, p: Params, cache, x,
         cache = _fill_kv_cache(cfg, cache, kv, S)
     x = x + a
     h = norm_apply(cfg.norm_kind, p["norm2"], x, eps)
+    if kind == "moe":
+        y, aux = moe_mod.moe_forward(cfg, p["moe"], h)
+        return x + y, cache, aux
     return x + mlp(p["mlp"], h, cfg.act), cache, _zero_aux(x)
 
 
@@ -223,6 +235,8 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
                                    window=cfg.window)
     x_t = x_t + a
     h = norm_apply(cfg.norm_kind, p["norm2"], x_t, eps)
+    if kind == "moe":
+        return x_t + moe_mod.moe_forward_dense(cfg, p["moe"], h)[0], cache
     return x_t + mlp(p["mlp"], h, cfg.act), cache
 
 
@@ -285,7 +299,7 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor,
             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy over the true vocab, mean per token, plus the aux
-    loss (0 for every ported family).  The padded vocab columns are masked
+    loss (the MoE layers' sum; 0 for the other kinds).  The padded vocab columns are masked
     by an additive bias fused into the float32 upcast; with ``embeds``
     only the trailing ``labels.shape[1]`` positions count.
 

@@ -1408,3 +1408,140 @@ def test_vlm_flash_prefill_layer_at_full_width(B, cuda):
     assert seen == [(B, 1324, 12, 128)], seen
     assert dict(ops.LAUNCH_COUNTS) == {"flash": 1}
     assert bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# The MoE family and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_moe_layer_at_full_width_grouped_equals_einsum(cuda):
+    """One ``olmoe_1b_7b`` MoE layer at full width (d 2048, 64 experts,
+    top 8, expert_ff 1024) in bf16 on 2 x 128 tokens, one group (G = T
+    = 256): the grouped path's routing exactly the einsum oracle's
+    (experts, positions, keep), its output within 3e-2 of |want| plus
+    3e-2 of the largest |want| of the oracle's (bf16 combine against
+    float32), the scatter form within 1e-2 of the oracle; forward and
+    backward bitwise on a repeat with deterministic algorithms on.  Then
+    the router's columns 32 to 63 copies of 0 to 31, so every token's
+    probabilities tie in pairs: the experts and their order equal a
+    stable descending sort's on the CPU (the lower index first)."""
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe_1b_7b")
+    p = moe.moe_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                     torch.bfloat16)
+    x = torch.randn(2, 128, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    x = x.to(torch.bfloat16)
+    T, K, E = 256, cfg.top_k, cfg.n_experts
+    with torch.no_grad():
+        got, aux = moe.moe_forward(cfg, p, x)
+        want, aux_e = moe.moe_forward_einsum(cfg, p, x)
+        scat, _ = moe.moe_forward_scatter(cfg, p, x)
+        _, _, _, idx, pos, keep, G, Cg = moe.route_grouped(
+            cfg, p, x.reshape(T, -1), T)
+        _, _, _, idx_e = moe._router(cfg, p, x.reshape(T, -1))
+        pos_e = moe._positions(idx_e.reshape(T * K), E).reshape(T, K)
+    assert G == T and moe._capacity(T, cfg) == Cg == 40
+    assert torch.equal(idx, idx_e)
+    assert torch.equal(pos.reshape(T, K), pos_e)
+    assert torch.equal(keep.reshape(T, K), pos_e < Cg)
+    w, g = want.float(), got.float()
+    assert bool(((g - w).abs() <= 3e-2 * w.abs()
+                 + 3e-2 * w.abs().max()).all())
+    _close(scat.float(), w, "scatter vs einsum", rtol=1e-2, atol=1e-2)
+    assert float(aux) == float(aux_e) and float(aux) > 0
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = []
+        for _ in range(2):
+            q = {k: (v.clone().requires_grad_(True) if torch.is_tensor(v)
+                     else {"w": v["w"].clone().requires_grad_(True)})
+                 for k, v in p.items()}
+            y, a = moe.moe_forward(cfg, q, x)
+            (y.float().square().sum() + a).backward()
+            grads.append([q["router"]["w"].grad] + [q[k].grad for k in (
+                "wi", "wg", "wo")] + [y])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+    w = p["router"]["w"].clone()
+    w[:, E // 2:] = w[:, :E // 2]
+    tied = dict(p, router={"w": w})
+    with torch.no_grad():
+        _, probs, _, idx = moe._router(cfg, tied, x.reshape(T, -1))
+    pr = probs.cpu().numpy()
+    order = np.argsort(-pr, axis=-1, kind="stable")[:, :K]
+    top = np.sort(pr, axis=-1)[:, ::-1]
+    assert np.all(top[:, 0] == top[:, 1])               # every token ties
+    assert idx.cpu().numpy().tolist() == order.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+def test_granite_moe_flash_prefill_layer_hd64(B, cuda):
+    """One ``granite_moe_1b_a400m`` attention layer at full width (d 1024,
+    16 heads over 8 kv heads of 64, bf16) over 1,024 tokens: the first
+    hd-64 bf16 flash at a model's length, within 2 bf16 ulps (plus 2e-5)
+    of the plain attention on the same rotated q, k, v, one launch."""
+    from repro_torch.models import attention
+
+    cfg = get_config("granite_moe_1b_a400m").with_(use_flash=True)
+    p = attention.gqa_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           torch.bfloat16)
+    x = torch.randn(B, 1024, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    x = x.to(torch.bfloat16)
+    seen = []
+    orig = attention._flash_sdpa
+
+    def checked(c, q, k, v, causal):
+        o = orig(c, q, k, v, causal)
+        S = q.shape[1]
+        want = attention._sdpa(q, k, v, attention.causal_mask(S, S, 0, 0,
+                                                              q.device),
+                               attention._inv_sqrt(c.hd)).float()
+        e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+        assert bool(((o.float() - want).abs()
+                     <= 2 * torch.exp2(e - 7) + 2e-5).all())
+        seen.append(q.shape)
+        return o
+
+    ops.reset_launch_counts()
+    attention._flash_sdpa = checked
+    try:
+        with torch.no_grad():
+            out = attention.gqa_forward(cfg, p, x)
+    finally:
+        attention._flash_sdpa = orig
+    assert seen == [(B, 1024, 16, 64)], seen
+    assert dict(ops.LAUNCH_COUNTS) == {"flash": 1}
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_whisper_encoder_layer_at_full_width_equals_the_cpu(cuda):
+    """One ``whisper_large_v3`` encoder layer at full width (d 1280, 20
+    heads of 64, LayerNorm, GELU) in float32 over 1,500 frames, with the
+    sinusoidal positions and the final norm (``encode``): the card
+    against the CPU within the parity pair, no kernel launched (the
+    non-causal 1,500-frame attention is the plain one, as the config's
+    ``use_flash=False``)."""
+    from repro_torch.models import encdec
+
+    cfg = get_config("whisper_large_v3").with_(encoder_layers=1, n_layers=1,
+                                               dtype="float32")
+    params = encdec.init_encdec(torch.Generator().manual_seed(0), cfg)
+    frames = torch.randn(1, 1500, cfg.d_model,
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = encdec.encode(_to(params, cuda), cfg, frames.to(cuda))
+        want = encdec.encode(params, cfg, frames)
+    assert not ops.LAUNCH_COUNTS
+    _close(got, want, "encoder layer, card vs CPU")

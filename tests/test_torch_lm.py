@@ -55,7 +55,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import build as tbuild
 from repro_torch.models import layers as tlayers
-from repro_torch.models import transformer as ttransformer
 from repro_torch.serving.lm import LMServingEngine as TEngine
 from repro_torch.serving.lm import Request as TRequest
 
@@ -317,18 +316,42 @@ def test_bf16_smoke_matches_reference():
     _close(tlog, jlog, "bf16 prefill logits", tol=BF16_TOL)
 
 
+# The MoE family and the encoder-decoder, which raised NotImplementedError
+# here until they were ported, on this file's smoke config
+FAMILIES = (dict(arch_type="moe", n_experts=4, top_k=2, expert_ff=64),
+            dict(encoder_layers=2, n_audio_frames=8))
+
+
+def _family_batch(cfg, rng):
+    toks = rng.integers(0, cfg.vocab, (2, 7))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(
+            size=(2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def test_unported_families_raise():
+    """The name is kept from when these families raised: both are ported,
+    so each builds from a seed and gives a finite loss, and from the
+    reference's parameters the reference's loss (the MoE's with its aux
+    loss).  Only a name the registry does not know raises."""
     jc, tc = _cfgs()
-    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
-        with pytest.raises(NotImplementedError):
-            tbuild(tc.with_(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tget("olmoe_1b_7b")
-    # the loss is ported (tests/test_torch_train.py); an unported family's
-    # loss still raises
-    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
-        with pytest.raises(NotImplementedError):
-            ttransformer.lm_loss(None, tc.with_(**kw), None, None)
+    for kw in FAMILIES:
+        jcf, tcf = jc.with_(**kw), tc.with_(**kw)
+        batch = _family_batch(tcf, np.random.default_rng(0))
+        tb = {k: (torch.as_tensor(v) if k == "frames"
+                  else torch.as_tensor(v).long()) for k, v in batch.items()}
+        own = tbuild(tcf).loss(tbuild(tcf).init(0, device="cpu"), tb)
+        assert np.isfinite(float(own)), kw
+        jp = jbuild(jcf).init(jax.random.PRNGKey(0))
+        want = jbuild(jcf).loss(jp, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+        got = tbuild(tcf).loss(convert.lm_params(jp, tcf, "cpu"), tb)
+        np.testing.assert_allclose(float(got), float(want),
+                                   rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        tget("no_such_arch")
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +365,9 @@ def test_registry_matches_reference():
         include_paper=True)
     assert set(PORTED) == {"qwen2_5_3b", "mamba2_130m", "granite_8b",
                            "qwen3_14b", "paper_kernel", "recurrentgemma_9b",
-                           "qwen2_vl_2b", "minicpm3_4b"}
+                           "qwen2_vl_2b", "minicpm3_4b", "olmoe_1b_7b",
+                           "granite_moe_1b_a400m", "whisper_large_v3"}
+    assert set(PORTED) == set(jall_arch_ids(include_paper=True))
     for name in PORTED:
         want, got = jget(name), tget(name)
         if name == "paper_kernel":

@@ -182,20 +182,36 @@ def test_trainer_defaults_to_the_card_and_raises_without_it():
 
 
 def test_unported_families_raise_in_the_trainer():
+    """The name is kept from when the MoE family and the encoder-decoder
+    raised here: both are ported, so the trainer builds each (m 2 from a
+    seed) and takes a round with a finite loss, a MoE's carrying its aux
+    loss, an encoder-decoder's batch holding ``frames``.  Only a name the
+    registry does not know raises."""
     _, tc = _cfgs()
     opt_cfg = OptimizerConfig()
-    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
-        with pytest.raises(NotImplementedError):
-            ttrain.init_train_state(0, tc.with_(**kw), 2, opt_cfg,
-                                    device="cpu")
-        with pytest.raises(NotImplementedError):
-            ttrain.make_train_step(tc.with_(**kw),
-                                   tproto.ProtocolConfig(), opt_cfg)
-    for kw in (dict(encoder_layers=2), dict(arch_type="moe")):
-        with pytest.raises(NotImplementedError):
-            ttransformer.lm_loss(None, tc.with_(**kw), None, None)
-    with pytest.raises(NotImplementedError):
-        tget("olmoe_1b_7b")
+    for kw in (dict(arch_type="moe", n_experts=4, top_k=2, expert_ff=64),
+               dict(encoder_layers=2, n_audio_frames=8)):
+        cfg = tc.with_(**kw)
+        state = ttrain.init_train_state(0, cfg, 2, opt_cfg, device="cpu")
+        step = ttrain.make_train_step(cfg, tproto.ProtocolConfig(
+            kind="periodic", period=1), opt_cfg)
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab, (2, 1, 7))
+        batch = {"tokens": torch.as_tensor(toks[..., :-1]).long(),
+                 "labels": torch.as_tensor(toks[..., 1:]).long()}
+        if cfg.is_encdec:
+            batch["frames"] = torch.as_tensor(rng.normal(
+                size=(2, 1, 8, cfg.d_model)).astype(np.float32))
+        state, loss = step(state, batch)
+        assert np.isfinite(float(loss)) and int(state.pstate.syncs) == 1
+        one = tree_map(lambda x: x[0], state.params)
+        single = {k: v[0] for k, v in batch.items()}
+        assert np.isfinite(float(tbuild(cfg).loss(one, single)))
+        if cfg.arch_type == "moe":
+            _, aux = ttransformer.forward_lm(one, cfg, single["tokens"])
+            assert float(aux) > 0
+    with pytest.raises(KeyError, match="unknown architecture"):
+        tget("no_such_arch")
 
 
 # ---------------------------------------------------------------------------

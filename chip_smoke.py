@@ -302,6 +302,23 @@ non-zero with no result line:
    decode steps within 2e-2 of the largest logit of ``decode_train``;
    the trainer at 4 + 4 layers, m = 2 x (1,500 frames + 256 tokens), T =
    4, under phase 12's checks.
+20. ``launch``: the dry run (``launch/dryrun.py``, no card) over the
+   single-pod mesh (data 16 x model 16) for one architecture per family
+   (``LAUNCH_ARCHS``) at the four shapes, 24 records counted on ``meta``
+   tensors in one spawned process a CPU core (the 40 of ``--all``
+   are the README's command); then the ``long_500k`` decode step of
+   ``qwen2_5_3b`` (its window variant: a ring of 4,096 slots) and of
+   ``mamba2_130m`` at full width on the card, B 1, bf16 weights drawn
+   on the card from seed 0: one step under ``FlopCounterMode`` counts
+   exactly the record's ``flops_global``, the parameters, caches, token
+   and position allocated on the card hold exactly its
+   ``argument_size_global`` bytes, the next token lies in the
+   vocabulary, no kernel of the port launched; the step's CUDA-event
+   time (the median of ``LAUNCH_ITERS`` after warm-up) beside
+   ``roofline.analyze_record``'s compute and memory terms for one H100
+   at the same global counts, and where the step's time goes:
+   ``LAUNCH_BUSY_STEPS`` steps' wall and device ms, CUDA activities and
+   busy share, unprofiled and profiled (``_launch_busy``).
 
 Every run phase reads the card's busy share and top kernels over a
 window, the run's first twentieth of rounds run again unprofiled for its
@@ -5283,6 +5300,159 @@ def run_audio_phase(ops) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run on meta tensors, two decode steps held on the card
+# ---------------------------------------------------------------------------
+
+#: one architecture per family (``arch_type``): the full ``--all`` of 40
+#: combos took 107 s in one process on a CPU, over the phase's 90 s
+LAUNCH_ARCHS = ("qwen2_5_3b", "olmoe_1b_7b", "mamba2_130m",
+                "recurrentgemma_9b", "qwen2_vl_2b", "whisper_large_v3")
+LAUNCH_CARD_ARCHS = ("qwen2_5_3b", "mamba2_130m")
+LAUNCH_SHAPE = "long_500k"
+LAUNCH_WARMUP = 3
+LAUNCH_ITERS = 20
+LAUNCH_BUSY_STEPS = 5
+
+
+def _median_event_ms(fn, warmup: int, iters: int) -> float:
+    """The median of ``iters`` calls' CUDA-event times, after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _launch_busy(run, steps: int) -> dict:
+    """Where a decode step's time goes: ``steps`` calls of ``run`` once
+    unprofiled for their wall time and once profiled for their CUDA
+    activities (kernels, copies, sets), as ``_busy_window`` reads a run
+    phase.  Per step: the wall and device ms, the activities, the three
+    activities of most device time; and the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def steps_of_run():
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps_of_run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps_of_run()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    by_name: collections.Counter = collections.Counter()
+    for e in evs:
+        by_name[e.name()[:60]] += e.duration_ns() / 1e6 / steps
+    device_ms = sum(by_name.values())
+    return {"busy_steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ms_per_step": device_ms,
+            "activities_per_step": len(evs) / steps,
+            "device_busy_share": device_ms * steps / (wall * 1e3),
+            "top_device_ms_per_step": dict(by_name.most_common(3))}
+
+
+def _launch_card_step(arch: str, rec: dict, dev) -> dict:
+    """The dry run's decode record of ``arch`` held to one step on the
+    card (see the module docstring, phase 20)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get
+    from repro_torch.launch import roofline, specs
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models import build
+    from repro_torch.tree import leaves
+
+    cfg = specs.variant_for(get(arch), LAUNCH_SHAPE)
+    shape = specs.SHAPES[LAUNCH_SHAPE]
+    B, seq = shape["batch"], shape["seq"]
+    api = build(cfg)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    caches = api.init_caches(B, seq + specs.CACHE_MARGIN)
+    token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(seq, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    arg_bytes = sum(x.numel() * x.element_size()
+                    for x in leaves((params, caches, token, pos)))
+    assert arg_bytes == rec["argument_size_global"], (
+        arch, arg_bytes, rec["argument_size_global"])
+    step = make_decode_step(cfg)
+    with FlopCounterMode(display=False) as fc:
+        nxt, caches = step(params, caches, token, seq)
+    torch.cuda.synchronize()
+    assert fc.get_total_flops() == rec["flops_global"], (
+        arch, fc.get_total_flops(), rec["flops_global"])
+    assert nxt.shape == (B, 1) and 0 <= int(nxt.min()) \
+        and int(nxt.max()) < cfg.vocab, nxt
+    ms = _median_event_ms(lambda: step(params, caches, token, seq),
+                          LAUNCH_WARMUP, LAUNCH_ITERS)
+    busy = _launch_busy(lambda: step(params, caches, token, seq),
+                        LAUNCH_BUSY_STEPS)
+    one = roofline.analyze_record({
+        **rec, "devices": 1, "flops": rec["flops_global"],
+        "bytes_accessed": rec["bytes_accessed_global"]})
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"window": cfg.window, "B": B, "pos": seq,
+            "flops_global": rec["flops_global"],
+            "argument_size_global": arg_bytes,
+            "allocated_bytes": allocated,
+            "bytes_accessed_global": rec["bytes_accessed_global"],
+            "step_ms": ms, "compute_ms": one["compute_s"] * 1e3,
+            "memory_ms": one["memory_s"] * 1e3, "dominant": one["dominant"],
+            "step_over_bound": ms / (max(one["compute_s"],
+                                         one["memory_s"]) * 1e3),
+            **busy}
+
+
+def run_launch_phase(ops) -> None:
+    """Phase 20 (``launch``): see the module docstring."""
+    from repro_torch import device as device_mod
+    from repro_torch.launch import dryrun, specs
+
+    t_phase = time.perf_counter()
+    dev = device_mod.resolve()
+    ops.reset_launch_counts()
+    combos = [(a, s) for a in LAUNCH_ARCHS for s in specs.SHAPES]
+    jobs = min(len(combos), os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    records, failures = dryrun.run_all(combos, False,
+                                       str(OUT_DIR / "dryrun"), jobs=jobs)
+    dry_s = time.perf_counter() - t0
+    assert not failures, failures
+    assert len(records) == len(combos)
+    for rec in records.values():
+        assert rec["flops_global"] > 0 and rec["bytes_accessed_global"] > 0
+        assert {k for k, v in rec.items() if v is None} == \
+            set(dryrun.NULL_FIELDS)
+    card = {arch: _launch_card_step(arch, records[arch, LAUNCH_SHAPE], dev)
+            for arch in LAUNCH_CARD_ARCHS}
+    assert not ops.LAUNCH_COUNTS, dict(ops.LAUNCH_COUNTS)
+    emit({"phase": "launch",
+          "dryrun": {"archs": list(LAUNCH_ARCHS), "mesh": "single",
+                     "records": len(records), "jobs": jobs,
+                     "wall_s": dry_s,
+                     "lower_s_sum": sum(r["lower_s"]
+                                        for r in records.values())},
+          "card": card, "phase_wall_s": time.perf_counter() - t_phase})
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5417,6 +5587,8 @@ def _drive(refs) -> int:
     moe_shapes = run_moe_phase(ops, totals, flash, ref)
     torch.cuda.empty_cache()
     run_audio_phase(ops)
+    torch.cuda.empty_cache()
+    run_launch_phase(ops)
 
     tuned_op = {"sv_predict": "sv_predict", "quadform": "quadform",
                 "primal_step_rff": "rff_step",

@@ -4,8 +4,8 @@ One module per architecture defines ``CONFIG`` with the reference's
 exact sizes and registers it.  ``get(name)`` returns the full config;
 ``get_smoke(name)`` the reduced same-family variant the CPU tests use.
 
-Every architecture of the reference has a module here and is in
-``PORTED``: the dense, MoE (``olmoe_1b_7b``, ``granite_moe_1b_a400m``),
+Every architecture of the reference has a module here, and the port
+runs each: the dense, MoE (``olmoe_1b_7b``, ``granite_moe_1b_a400m``),
 SSM, hybrid, VLM and MLA decoders and the encoder-decoder
 (``whisper_large_v3``).  ``get`` of a name the reference does not know
 raises ``KeyError``.  ``all_arch_ids`` is the reference's full id list.
@@ -32,11 +32,6 @@ ARCH_IDS: List[str] = [
     "paper_kernel",
 ]
 
-#: The architectures the port runs.
-PORTED = ("qwen2_5_3b", "mamba2_130m", "granite_8b", "qwen3_14b",
-          "paper_kernel", "recurrentgemma_9b", "qwen2_vl_2b", "minicpm3_4b",
-          "olmoe_1b_7b", "granite_moe_1b_a400m", "whisper_large_v3")
-
 # CLI aliases (dashes as given in the reference)
 ALIASES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
@@ -62,7 +57,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get(name: str) -> ModelConfig:
     name = ALIASES.get(name, name)
     if name not in _REGISTRY:
-        if name not in PORTED:
+        if name not in ARCH_IDS:
             raise KeyError(f"unknown architecture {name!r}")
         importlib.import_module(f"{__package__}.{name}")
     return _REGISTRY[name]

@@ -35,7 +35,6 @@ from .launch.train import TrainState
 from .models.attention import KVCache, MLACache
 from .models.rglru import LRUState
 from .models.ssm import SSMState
-from .models.transformer import PORTED_KINDS
 from .tree import tree_map
 
 
@@ -101,16 +100,11 @@ def _layers(cfg, stages) -> list:
     """(stage, repeat, unit index, kind) of each layer in
     ``cfg.pattern``'s order: unit j of repeat r in stage s is layer
     ``sum of the earlier stages' layers + r len(unit) + j``.  Checks that
-    the reference's stages are ``cfg.stages``' and their kinds ported."""
+    the reference's stages are ``cfg.stages``'."""
     out = []
     for s, (unit, repeats) in enumerate(cfg.stages):
         out += [(s, r, j, kind) for r in range(repeats)
                 for j, kind in enumerate(unit)]
-    kinds = {kind for *_, kind in out}
-    if kinds - PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kinds {sorted(kinds - PORTED_KINDS)} are not ported; "
-            f"ported: {sorted(PORTED_KINDS)}")
     if [kind for *_, kind in out] != list(cfg.pattern) \
             or len(stages) != len(cfg.stages) \
             or any(sorted(st) != [f"b{j}" for j in range(len(unit))]

@@ -1,4 +1,6 @@
-"""The learner mesh (port of ``repro/launch/mesh.py``'s learner half).
+"""Meshes (port of ``repro/launch/mesh.py``): the learner mesh the
+engine runs on, the production and host meshes the dry run lays specs
+over, and the H100's constants for the roofline.
 
 The reference shards the learner axis over a ``jax.sharding.Mesh`` and
 runs ONE program on it (``shard_map``): a single controller.  The port
@@ -13,9 +15,15 @@ shards' models on the lead shard (shard 0) in learner order and runs
 the single-device sync there.  No float is reduced across shards, so
 a mesh run equals the single-device run bitwise.
 
-The reference's production meshes (``make_production_mesh``,
-``make_host_mesh``) and its TPU hardware constants are not part of
-the port.
+``make_production_mesh`` and ``make_host_mesh`` build a
+:class:`NamedMesh`, axes with names and sizes.  The production mesh
+holds no device: the port's dry run (``launch/dryrun.py``) reads only
+its axes, the per-device shapes a spec implies on them and the learner
+count (``num_learners``: 16 on one pod, 32 on two).  The host mesh
+spans the visible cards, or the devices given.
+
+The hardware constants are one NVIDIA H100 SXM's, from NVIDIA's data
+sheet at its 700 W power limit (dense rates, no sparsity).
 """
 from __future__ import annotations
 
@@ -88,6 +96,63 @@ def make_learner_mesh(n: int = 0,
                                      for k in range(n)))
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """A mesh of named axes (``axis_names``, ``axis_sizes``), over
+    ``devices`` in row-major order, or over none (a production mesh, for
+    the dry run).  Frozen and hashable."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    devices: Tuple[torch.device, ...] = ()
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes) \
+                or len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"axes {self.axis_names} of sizes "
+                             f"{self.axis_sizes}")
+        if any(n < 1 for n in self.axis_sizes):
+            raise ValueError(f"axis sizes {self.axis_sizes}")
+        if self.devices and len(self.devices) != self.size:
+            raise ValueError(f"{len(self.devices)} devices for a mesh of "
+                             f"{self.size}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> NamedMesh:
+    """(data 16, model 16) = 256 devices, or (pod 2, data 16, model 16)
+    = 512, with no device behind them."""
+    if multi_pod:
+        return NamedMesh(("pod", "data", "model"), (2, 16, 16))
+    return NamedMesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(data: int = 1, model: int = 1,
+                   devices: Optional[Sequence] = None) -> NamedMesh:
+    """A (data, model) mesh over the first data x model of the visible
+    cards, or of ``devices`` (``["cpu"] * 4``: four on the CPU).  Raises
+    where there are fewer, and without ``devices`` on a machine without
+    CUDA, as ``device.resolve`` does."""
+    if devices is None:
+        device_mod.resolve("cuda")          # raises without CUDA
+        devs = tuple(torch.device("cuda", k)
+                     for k in range(torch.cuda.device_count()))
+    else:
+        devs = tuple(resolve_device(d) for d in devices)
+    if data * model > len(devs):
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"devices, {len(devs)} given")
+    return NamedMesh(("data", "model"), (data, model),
+                     devs[:data * model])
+
+
 def data_axes(mesh) -> Tuple[str, ...]:
     """The learner/batch axes of a mesh (everything except 'model')."""
     return tuple(a for a in mesh.axis_names if a != "model")
@@ -110,3 +175,13 @@ def learner_axes_of(mesh) -> Tuple[str, ...]:
             f"mesh {mesh.axis_names} has no learner axis; name one "
             "'learners' or include a non-'model' axis")
     return axes
+
+
+# Hardware constants for the roofline (one NVIDIA H100 SXM, data sheet,
+# 700 W): dense bf16 tensor-core peak and HBM3 bandwidth.
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s per card
+HBM_BW = 3.35e12                # bytes/s per card
+# NVLink 4: 900 GB/s a card over its 18 links, both directions summed,
+# so 450 GB/s a card in each direction.  The roofline's collective term
+# divides one device's collective bytes by this per-card figure.
+LINK_BW = 450e9                 # bytes/s per card, one direction

@@ -13,7 +13,10 @@ gradients are taken on its own slice, one learner at a time, so only
 one learner's autograd graph and gradients are alive at once.  The
 step writes each learner's new parameters into a fresh stack and then
 calls ``core.protocol.apply_protocol``.  No step writes in place: the
-caller's ``TrainState`` stays as it was.
+caller's ``TrainState`` stays as it was.  ``local_update`` (one
+learner's step) is a module function, so the dry run
+(``launch/dryrun.py``) counts it on its own; ``train_state_specs`` is
+the state's tree on ``meta`` tensors.
 
 A parameter tree may mix dtypes (the bf16 Mamba-2 tree holds float32
 ``A_log``, ``D`` and ``dt_bias``): the optimizer computes each update in
@@ -42,6 +45,7 @@ from ..models import build
 from ..models.config import ModelConfig
 from ..optim import OptimizerConfig, make as make_optimizer
 from ..tree import leaves, tree_map, unflatten
+from .specs import META, param_specs
 
 PyTree = Any
 
@@ -65,6 +69,11 @@ def init_train_state(seed_or_generator: Union[int, torch.Generator],
     CUDA card), the reference stacked beside them."""
     dev = device_mod.resolve(device)
     params0 = build(cfg).init(seed_or_generator, device=dev)
+    return _train_state(params0, m, opt_cfg, dev)
+
+
+def _train_state(params0: PyTree, m: int, opt_cfg: OptimizerConfig,
+                 dev: torch.device) -> TrainState:
     opt = make_optimizer(opt_cfg)
     return TrainState(
         params=_stack(params0, m),
@@ -72,6 +81,27 @@ def init_train_state(seed_or_generator: Union[int, torch.Generator],
         pstate=protocol.init_state(params0, m),
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+def train_state_specs(cfg: ModelConfig, m: int,
+                      opt_cfg: OptimizerConfig) -> TrainState:
+    """The train state of m learners on ``meta`` tensors (shapes and
+    dtypes, no storage; for the dry run): ``init_train_state``'s tree
+    from ``launch.specs.param_specs``."""
+    return _train_state(param_specs(cfg), m, opt_cfg, META)
+
+
+def local_update(api, opt, params, opt_state, step, batch):
+    """One learner's local step: its loss and gradients on its own
+    batch, then the optimizer's update.  Returns (new parameters, new
+    optimizer state, detached loss)."""
+    params = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss = api.loss(params, batch)
+    flat = leaves(params)
+    grads = unflatten(params, torch.autograd.grad(loss, flat))
+    params = tree_map(lambda x: x.detach(), params)
+    new_params, new_opt = opt.update(grads, opt_state, params, step)
+    return new_params, new_opt, loss.detach()
 
 
 def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
@@ -85,15 +115,6 @@ def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
     api = build(cfg)
     opt = make_optimizer(opt_cfg)
 
-    def local_update(params, opt_state, step, batch):
-        params = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        loss = api.loss(params, batch)
-        flat = leaves(params)
-        grads = unflatten(params, torch.autograd.grad(loss, flat))
-        params = tree_map(lambda x: x.detach(), params)
-        new_params, new_opt = opt.update(grads, opt_state, params, step)
-        return new_params, new_opt, loss.detach()
-
     def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         m = leaves(state.params)[0].shape[0]
         new_params = tree_map(
@@ -105,7 +126,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ProtocolConfig,
         losses = []
         for i in range(m):
             p_i, o_i, loss = local_update(
-                tree_map(lambda x: x[i], state.params),
+                api, opt, tree_map(lambda x: x[i], state.params),
                 tree_map(lambda x: x[i], state.opt), state.step,
                 {k: v[i] for k, v in batch.items()})
             tree_map(lambda dst, src: dst[i].copy_(src), new_params, p_i)

@@ -84,12 +84,6 @@ class MLACache(NamedTuple):
         return self.c.shape[1]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, 'Modules still "
-        f"to port')")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -144,8 +138,6 @@ def cross_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     if cfg.attn_kind == "mla":
         return mla_init(gen, cfg, dtype)
-    if cfg.attn_kind != "gqa":
-        raise _not_ported(f"attention kind {cfg.attn_kind!r}")
     return gqa_init(gen, cfg, dtype)
 
 

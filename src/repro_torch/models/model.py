@@ -64,8 +64,6 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
 
 def _build_decoder_only(cfg: ModelConfig) -> ModelAPI:
-    transformer.check_supported(cfg)
-
     def init(gen: Union[int, torch.Generator], device=None):
         return transformer.init_lm(_generator(gen, device), cfg)
 

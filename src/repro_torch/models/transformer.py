@@ -56,27 +56,19 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-#: the block kinds the port runs
-PORTED_KINDS = frozenset(("attn", "moe", "ssm", "rglru"))
+#: the block kinds of a decoder
+BLOCK_KINDS = frozenset(("attn", "moe", "ssm", "rglru"))
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's decoder does not run."""
-    kinds = set(cfg.pattern)
-    if kinds - PORTED_KINDS:
-        raise attn._not_ported(f"block kinds {sorted(kinds - PORTED_KINDS)}")
-    if kinds & {"attn", "moe"} and cfg.attn_kind not in ("gqa", "mla"):
-        raise attn._not_ported(f"attention kind {cfg.attn_kind!r}")
+def _check_kind(kind: str) -> None:
+    """An unknown block kind raises, as the reference's blocks do."""
+    if kind not in BLOCK_KINDS:
+        raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # Block init / forward / decode
 # ---------------------------------------------------------------------------
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise attn._not_ported(f"block kind {kind!r}")
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
@@ -247,7 +239,6 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters drawn from ``gen`` on its device."""
-    check_supported(cfg)
     dt = torch_dtype(cfg)
     params: Params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
@@ -286,7 +277,6 @@ def forward_lm(params: Params, cfg: ModelConfig,
                embeds: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None):
     """Returns (logits over padded_vocab, aux_loss)."""
-    check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     aux = _zero_aux(x)
     for kind, p in zip(cfg.pattern, params["layers"]):
@@ -331,7 +321,6 @@ def init_caches(cfg: ModelConfig, B: int, length: int, dtype=None,
     """One empty cache per layer, in pattern order (a recurrent layer's
     does not depend on ``length``; a windowed attention layer's holds
     min(length, window) slots)."""
-    check_supported(cfg)
     dt = dtype or torch_dtype(cfg)
     return [block_cache_init(cfg, kind, B, length, dt, device)
             for kind in cfg.pattern]
@@ -342,7 +331,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             positions: Optional[torch.Tensor] = None):
     """Full-sequence forward filling the caches.  Returns (last-token
     logits (B, 1, V), caches)."""
-    check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     new_caches = []
     for kind, p, c in zip(cfg.pattern, params["layers"], caches):
@@ -355,7 +343,6 @@ def decode_step(params: Params, cfg: ModelConfig, caches,
                 token: torch.Tensor, pos):
     """token: (B, 1) ints; pos: the new token's absolute position (a
     host int or a 0-d tensor).  Returns (logits (B, 1, V), caches)."""
-    check_supported(cfg)
     pos = int(pos)
     x = embed(params["embed"], token)
     new_caches = []

@@ -1545,3 +1545,56 @@ def test_whisper_encoder_layer_at_full_width_equals_the_cpu(cuda):
         want = encdec.encode(params, cfg, frames)
     assert not ops.LAUNCH_COUNTS
     _close(got, want, "encoder layer, card vs CPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["prefill_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "mamba2_130m",
+                                  "olmoe_1b_7b"])
+def test_dry_run_counts_equal_a_step_on_the_card(arch, shape, cuda,
+                                                 monkeypatch):
+    """The dry run's record (on ``meta``, smoke size, a (2, 2) mesh) and
+    the same step on the card: FlopCounterMode's count equal, the
+    inputs' bytes equal, no kernel of the port launched."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import NamedMesh
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.tree import leaves
+
+    monkeypatch.setattr(dryrun, "get", lambda a: get_config(a).smoke().with_(
+        long_context_window=16))
+    monkeypatch.setitem(specs.SHAPES, "prefill_32k",
+                        dict(kind="prefill", seq=16, batch=2))
+    monkeypatch.setitem(specs.SHAPES, "long_500k",
+                        dict(kind="decode", seq=40, batch=1))
+    monkeypatch.delenv("REPRO_BASELINE", raising=False)
+    rec = dryrun.count_combo(dryrun.build_combo(
+        arch, shape, NamedMesh(("data", "model"), (2, 2))),
+        NamedMesh(("data", "model"), (2, 2)))
+    cfg = specs.variant_for(dryrun.get(arch), shape)
+    sh = specs.SHAPES[shape]
+    B, S = sh["batch"], sh["seq"]
+    api = build(cfg)
+    params = api.init(0, device=cuda)
+    ops.reset_launch_counts()
+    if sh["kind"] == "prefill":
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                         dtype=torch.int32, device=cuda)}
+        step = make_prefill_step(cfg)
+        call = args = (params, batch, api.init_caches(B, S, device=cuda))
+    else:
+        step = make_decode_step(cfg)
+        caches = api.init_caches(B, S + specs.CACHE_MARGIN, device=cuda)
+        token = torch.zeros((B, 1), dtype=torch.int32, device=cuda)
+        call = (params, caches, token, S)
+        args = (params, caches, token, torch.tensor(S, dtype=torch.int32,
+                                                    device=cuda))
+    with FlopCounterMode(display=False) as fc:
+        step(*call)
+    torch.cuda.synchronize()
+    assert fc.get_total_flops() == rec["flops_global"]
+    assert sum(x.numel() * x.element_size() for x in leaves(args)) == \
+        rec["argument_size_global"]
+    assert not ops.LAUNCH_COUNTS

@@ -47,7 +47,7 @@ from repro.serving.lm import LMServingEngine as JEngine
 from repro.serving.lm import Request as JRequest
 
 from repro_torch import convert
-from repro_torch.configs import PORTED
+from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import all_arch_ids as tall_arch_ids
 from repro_torch.configs import get as tget
 from repro_torch.core import engine as teng
@@ -316,8 +316,7 @@ def test_bf16_smoke_matches_reference():
     _close(tlog, jlog, "bf16 prefill logits", tol=BF16_TOL)
 
 
-# The MoE family and the encoder-decoder, which raised NotImplementedError
-# here until they were ported, on this file's smoke config
+# The MoE family and the encoder-decoder on this file's smoke config
 FAMILIES = (dict(arch_type="moe", n_experts=4, top_k=2, expert_ff=64),
             dict(encoder_layers=2, n_audio_frames=8))
 
@@ -331,9 +330,8 @@ def _family_batch(cfg, rng):
     return batch
 
 
-def test_unported_families_raise():
-    """The name is kept from when these families raised: both are ported,
-    so each builds from a seed and gives a finite loss, and from the
+def test_moe_and_encdec_families_match_reference():
+    """Each family builds from a seed and gives a finite loss, and from the
     reference's parameters the reference's loss (the MoE's with its aux
     loss).  Only a name the registry does not know raises."""
     jc, tc = _cfgs()
@@ -363,12 +361,12 @@ def test_registry_matches_reference():
     assert tall_arch_ids() == jall_arch_ids()
     assert tall_arch_ids(include_paper=True) == jall_arch_ids(
         include_paper=True)
-    assert set(PORTED) == {"qwen2_5_3b", "mamba2_130m", "granite_8b",
+    assert set(ARCH_IDS) == {"qwen2_5_3b", "mamba2_130m", "granite_8b",
                            "qwen3_14b", "paper_kernel", "recurrentgemma_9b",
                            "qwen2_vl_2b", "minicpm3_4b", "olmoe_1b_7b",
                            "granite_moe_1b_a400m", "whisper_large_v3"}
-    assert set(PORTED) == set(jall_arch_ids(include_paper=True))
-    for name in PORTED:
+    assert set(ARCH_IDS) == set(jall_arch_ids(include_paper=True))
+    for name in ARCH_IDS:
         want, got = jget(name), tget(name)
         if name == "paper_kernel":
             assert (got.name, got.arch_type, got.m) == (

@@ -181,9 +181,8 @@ def test_trainer_defaults_to_the_card_and_raises_without_it():
         ttrain.main(["--steps", "1"])
 
 
-def test_unported_families_raise_in_the_trainer():
-    """The name is kept from when the MoE family and the encoder-decoder
-    raised here: both are ported, so the trainer builds each (m 2 from a
+def test_moe_and_encdec_families_train():
+    """The trainer builds the MoE family and the encoder-decoder (m 2 from a
     seed) and takes a round with a finite loss, a MoE's carrying its aux
     loss, an encoder-decoder's batch holding ``frames``.  Only a name the
     registry does not know raises."""

@@ -92,8 +92,9 @@ non-zero with no result line:
 7. ``async``: ``runtime.run_async_simulation`` on phase 3's learners
    and stream: ``async_sv_dynamic`` (ideal network, alpha 1, its depth
    cut to ``ASYNC_T_SV``), ``async_rff_wan`` (examples/async_susy.py's
-   lossy WAN, poly staleness) and ``async_linear_periodic`` (m = 1024,
-   depth cut to ``ASYNC_T_LINEAR``).  Each run must launch its kernels
+   lossy WAN, poly staleness, depth cut to ``ASYNC_T_RFF``) and
+   ``async_linear_periodic`` (m = 1024, depth cut to
+   ``ASYNC_T_LINEAR``).  Each run must launch its kernels
    (``sv_predict`` and ``quadform``; ``rff``), repeat bitwise in every
    field, and the SV and RFF runs equal ``backend="reference"`` on the
    card in sync rounds, bytes, the event clock's face and staleness,
@@ -319,6 +320,26 @@ non-zero with no result line:
    at the same global counts, and where the step's time goes:
    ``LAUNCH_BUSY_STEPS`` steps' wall and device ms, CUDA activities and
    busy share, unprofiled and profiled (``_launch_busy``).
+21. ``entry``: the port's entry scripts through their ``main(argv)`` in
+   this process on the card (``ENTRY_SCRIPTS``): ``examples/torch/``'s
+   ``quickstart``, ``rff_quickstart``, ``serve_quickstart`` (their
+   inline assertions included) and ``tools/substrate_matrix_torch.py``
+   at their fixed sizes (0 failures, 12 ``ok=True`` cells, 6 bitwise
+   backend ledgers), ``train_lm_dynamic`` with ``--steps 20
+   --ckpt-every 10`` (two checkpoints), ``async_susy`` and
+   ``susy_distributed`` cut to 100 and 300 rounds, ``stock_nowcast`` to
+   300 rounds of 8 learners (the CPU tests' sizes); every script returns
+   0.  The launches are the
+   engage-aware dispatch's: none in the seven examples (every substrate
+   on its default ``"reference"`` backend), and in the matrix only the
+   SV ``"kernels"`` cells' async aggregates, one ``quadform`` a sync
+   (their truncation over 2 n tau = 192 slots engages; budget 32, D 64
+   and m 3 do not).  A line a script: its argv, wall seconds, launches,
+   peak memory and the numbers it printed (its output in
+   ``chiprun_out/entry_<name>.txt``).  Then ``python
+   examples/torch/quickstart.py`` once as a subprocess from the
+   repository's root, whose table must equal the in-process one byte
+   for byte.
 
 Every run phase reads the card's busy share and top kernels over a
 window, the run's first twentieth of rounds run again unprofiled for its
@@ -344,9 +365,13 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import collections  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
+import importlib.util  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 import types  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -1924,10 +1949,14 @@ def run_serving(ops, totals, runs, refs) -> dict:
 
 #: the async runs' depths, cut from T_ROUNDS to keep the script inside its
 #: time limit: every node round is one learner's round in the host's
-#: event loop (SV: 16,000 node rounds in each of three runs; linear,
-#: m = 1024: 51,200 in each of two)
-ASYNC_T_SV = 500
-ASYNC_T_LINEAR = 50
+#: event loop (SV: 6,400 node rounds in each of three runs, with
+#: ``sv_dynamic``'s syncs at rounds 89 and 179; RFF: 9,600; linear, m =
+#: 1024: 20,480 in each of two, 2 syncs).  Cut further (from 500, 1000
+#: and 50) to pay for phase 21: one run took 26.3, 18.5 and 32.0 s at
+#: those depths on an H100 80GB HBM3 at 700 W (tools/entry_probe.py)
+ASYNC_T_SV = 200
+ASYNC_T_RFF = 300
+ASYNC_T_LINEAR = 20
 #: fields of an async run that must be equal across backends: the
 #: protocol's decisions, the byte ledger and the event clock's face
 ASYNC_EQUAL = ("sync_rounds", "num_syncs", "cumulative_bytes",
@@ -1952,7 +1981,7 @@ def async_configs():
          AsyncProtocolConfig(kind="dynamic", delta=16.0, mini_batch=10,
                              alpha=1.0, staleness="constant"),
          SystemConfig(), ("sv_predict", "quadform"), "sv_dynamic"),
-        ("async_rff_wan", learners["rff_dynamic"], M_KERNEL, T_ROUNDS,
+        ("async_rff_wan", learners["rff_dynamic"], M_KERNEL, ASYNC_T_RFF,
          AsyncProtocolConfig(kind="dynamic", delta=9.0, mini_batch=10,
                              alpha=0.6, staleness="poly", stale_a=0.5,
                              agg_window=1.0),
@@ -5453,6 +5482,126 @@ def run_launch_phase(ops) -> None:
           "card": card, "phase_wall_s": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the entry points (examples/torch/, tools/substrate_matrix_torch.py)
+# ---------------------------------------------------------------------------
+
+#: (name, path in the repository, argv) of each entry script, run through
+#: its ``main(argv)`` on the card; ``train_lm_dynamic`` also gets
+#: ``--ckpt-dir`` (a temporary directory)
+ENTRY_SCRIPTS = (
+    ("quickstart", "examples/torch/quickstart.py", ()),
+    ("rff_quickstart", "examples/torch/rff_quickstart.py", ()),
+    ("serve_quickstart", "examples/torch/serve_quickstart.py", ()),
+    ("substrate_matrix_torch", "tools/substrate_matrix_torch.py", ()),
+    ("train_lm_dynamic", "examples/torch/train_lm_dynamic.py",
+     ("--steps", "20", "--ckpt-every", "10")),
+    # cut to the CPU tests' depths (tests/test_torch_examples.py) to keep
+    # the phase inside its 90 s: at their defaults (600 and 1000 rounds;
+    # 1200 rounds of 32 learners) they took 35.9, 18.7 and 11.7 s alone on
+    # an H100 80GB HBM3 at 700 W (tools/entry_probe.py --defaults), and
+    # inside the whole script, on a slower host, the phase took 104.9 s
+    # with the first two at 200 and 300 (smoke_parts.py)
+    ("async_susy", "examples/torch/async_susy.py", ("--rounds", "100")),
+    ("susy_distributed", "examples/torch/susy_distributed.py",
+     ("--rounds", "300")),
+    ("stock_nowcast", "examples/torch/stock_nowcast.py",
+     ("--rounds", "300", "--learners", "8")),
+)
+#: a printed number, not a digit inside a name (``sv-128``, ``p50``)
+_NUMBER = re.compile(
+    r"(?<![\w.-])[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+#: the one wall-clock figure an entry script prints (train_lm_dynamic)
+_WALL = re.compile(r"\(\S+s/step\)")
+
+
+def _entry_script(rel: str):
+    """The script at ``rel`` (under ``ROOT``) as a module, not run."""
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(
+        "_entry_" + path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _printed(text: str) -> list:
+    """The numbers a script printed, a list a line that has any, as
+    printed (wall time left out)."""
+    lines = (_NUMBER.findall(_WALL.sub("", line))
+             for line in text.splitlines())
+    return [nums for nums in lines if nums]
+
+
+def _aggregate_launches(matrix_text: str) -> dict:
+    """The launches the matrix's engage-aware dispatch selects: none but
+    the SV ``kernels`` cells' async aggregates, whose truncation takes
+    one ``quadform`` form over their 2 n tau = 192 slots (128 and over
+    engage; ``SVSubstrate.aggregate``), one a sync."""
+    syncs = sum(int(re.search(r" async_syncs=(\d+) ", line).group(1))
+                for line in matrix_text.splitlines()
+                if line.startswith("substrate=sv ")
+                and " backend=kernels " in line)
+    return {"quadform": syncs}
+
+
+def run_entry_phase(ops, totals) -> None:
+    """Phase 21 (``entry``): see the module docstring."""
+    t_phase = time.perf_counter()
+    outputs = {}
+    with tempfile.TemporaryDirectory(prefix="entry_ckpt_") as ckpt_dir:
+        for name, rel, argv in ENTRY_SCRIPTS:
+            argv = list(argv)
+            if name == "train_lm_dynamic":
+                argv += ["--ckpt-dir", ckpt_dir]
+            script = _entry_script(rel)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = script.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(ops.LAUNCH_COUNTS)
+            text = outputs[name] = buf.getvalue()
+            (OUT_DIR / f"entry_{name}.txt").write_text(text)
+            assert rc == 0, f"{name}: main returned {rc}"
+            expect = {}
+            if name == "substrate_matrix_torch":
+                lines = text.splitlines()
+                assert lines[-1] == "substrate_matrix: 0 failures", lines[-1]
+                assert sum(ln.endswith(" ok=True") for ln in lines) == 12
+                assert sum(ln.endswith(" backend_ledger_bitwise_equal=True")
+                           for ln in lines) == 6
+                expect = _aggregate_launches(text)
+            assert counts == expect, f"{name}: launched {counts}, not {expect}"
+            for k, n in counts.items():
+                totals[k] = totals.get(k, 0) + n
+            if name == "train_lm_dynamic":
+                saved = sorted(os.listdir(ckpt_dir))
+                assert saved == ["latest", "step_00000010.ckpt",
+                                 "step_00000020.ckpt"], saved
+            emit({"phase": "entry", "script": name, "argv": argv,
+                  "wall_s": secs, "kernel_launches": counts,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "printed": _printed(text)})
+            torch.cuda.empty_cache()
+    # once from a bare shell: a run is a pure function of its seeds
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "examples/torch/quickstart.py"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    shell_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout == outputs["quickstart"], \
+        (proc.stdout, outputs["quickstart"])
+    emit({"phase": "entry", "scripts": len(ENTRY_SCRIPTS),
+          "shell_quickstart_s": shell_s, "shell_quickstart_equal": True,
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5589,6 +5738,8 @@ def _drive(refs) -> int:
     run_audio_phase(ops)
     torch.cuda.empty_cache()
     run_launch_phase(ops)
+    torch.cuda.empty_cache()
+    run_entry_phase(ops, totals)
 
     tuned_op = {"sv_predict": "sv_predict", "quadform": "quadform",
                 "primal_step_rff": "rff_step",

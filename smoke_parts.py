@@ -174,7 +174,11 @@ def install(smoke) -> None:
 
 def main() -> int:
     tree = Path(sys.argv[1] if len(sys.argv) > 1 else ROOT).resolve()
-    sys.path.insert(0, str(tree / "src"))
+    # the tree first: chip_smoke's spawned reference process gets this
+    # sys.path and imports ``chip_smoke`` by name for its jobs, which
+    # must be the tree's (with this file's own beside it, a parent tree's
+    # reference runs took this tree's constants)
+    sys.path[:0] = [str(tree), str(tree / "src")]
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", tree / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)

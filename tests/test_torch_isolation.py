@@ -1,16 +1,20 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
-- an AST scan of every module under ``src/repro_torch/`` and of
-  ``chip_smoke.py`` finds no import of ``jax``, ``repro``, ``msgpack``
+- an AST scan of every module under ``src/repro_torch/``, of
+  ``chip_smoke.py`` and of the port's entry scripts
+  (``examples/torch/*.py``, ``tools/substrate_matrix_torch.py``) finds
+  no import of ``jax``, ``repro``, ``msgpack``
   or ``ml_dtypes`` (the last two are not on the machine with the card);
 - a fresh interpreter that imports the port (and builds nothing) has
   none of them in ``sys.modules``;
 - the entry points (``engine.run``, ``engine.sweep``,
   ``run_population``, ``run_async_simulation``, the serial oracle,
   ``launch.mesh.make_learner_mesh``, the LM's) resolve ``device=None``
-  to the CUDA card and raise where there is none.
+  to the CUDA card and raise where there is none, and so does each entry
+  script's ``main([])``.
 """
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -36,8 +40,14 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
+def _entry_scripts():
+    return (sorted((ROOT / "examples" / "torch").glob("*.py"))
+            + [ROOT / "tools" / "substrate_matrix_torch.py"])
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + _entry_scripts())
 
 
 def _imported_roots(path: Path):
@@ -124,6 +134,19 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_learner_mesh(2)
     assert tdevice.resolve("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("path", _entry_scripts(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_entry_scripts_default_to_cuda_and_raise_without_it(path):
+    spec = importlib.util.spec_from_file_location(
+        f"_entry_{path.stem}", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        script.main([])
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it():

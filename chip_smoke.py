@@ -101,8 +101,11 @@ non-zero with no result line:
    losses within the parity pair; the SV run equals ``sv_dynamic``'s
    ledger over its rounds (the zero-latency contract) and peaks under
    1 GiB (an aggregate holds no Gram of its 2 n tau slots); the linear
-   run syncs every 10 rounds at ``sync_bytes_linear`` each.  Before the
-   runs, ``node_shapes`` times the kernels at a node's shapes:
+   run syncs every 10 rounds at ``sync_bytes_linear`` each.  Then
+   ``async_sv_wan_poly`` (examples/async_susy.py's WAN poly-staleness
+   run: 4 SV learners, budget 64, d 8, 200 rounds) on the card and on
+   the CPU, its byte ledger, sync rounds and syncs equal on both
+   (``check_wan_ledger``).  Before the runs, ``node_shapes`` times the kernels at a node's shapes:
    ``sv_predict`` at B = 1, the node's check (3 forms of 1024^2, bitwise
    three one-form launches) and the aggregate's 65,536^2 form.
 
@@ -340,6 +343,20 @@ non-zero with no result line:
    examples/torch/quickstart.py`` once as a subprocess from the
    repository's root, whose table must equal the in-process one byte
    for byte.
+22. ``init``: the reference's seeded draws (``repro_torch.prng``, plain
+   PyTorch, no kernel of the port): each of the ten LM configs'
+   ``build(cfg).init(0)`` on the card at full width, its depth cut to
+   ``INIT_LAYERS`` layers, a whole number of its first stage's units
+   (the full model's first layers, their keys held against the full
+   config's), one config
+   at a time and freed after, its seconds and peak memory; every drawn
+   leaf's first, middle and last ``INIT_SLICE`` elements bitwise the
+   CPU's draw of the same flat indices in a spawned process, every
+   undrawn leaf whole, RG-LRU's ``Lambda`` within the parity pair.
+
+The phases before 22 draw their inputs as they did before the port
+drew the reference's numbers: the LM weights from ``torch.Generator``s,
+the RFF learners' features from one (``torch_rff_spec``).
 
 Every run phase reads the card's busy share and top kernels over a
 window, the run's first twentieth of rounds run again unprofiled for its
@@ -368,6 +385,7 @@ import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -1360,16 +1378,29 @@ def check_gram(grammod, ref, dev, gen):
 # ---------------------------------------------------------------------------
 
 
+def torch_rff_spec(num_features: int, gamma: float, seed: int = 0):
+    """An ``RFFSpec`` holding the features a torch generator seeded with
+    ``seed`` draws (what a spec without arrays drew before the port drew
+    the reference's threefry features): these phases' inputs."""
+    from repro_torch.core.rff import RFFSpec
+
+    gen = torch.Generator().manual_seed(seed)
+    W = torch.randn((num_features, D_IN), generator=gen) \
+        * math.sqrt(2.0 * gamma)
+    b = torch.rand((num_features,), generator=gen) * (2.0 * math.pi)
+    return RFFSpec(dim=D_IN, num_features=num_features, gamma=gamma,
+                   seed=seed, W=W, b=b)
+
+
 def e2e_configs():
     from repro_torch.core.learners import LearnerConfig
     from repro_torch.core.protocol import ProtocolConfig
-    from repro_torch.core.rff import RFFSpec
     from repro_torch.core.rkhs import KernelSpec
 
     sv = LearnerConfig(algo="kernel_sgd", loss="hinge", eta=0.5, lam=0.01,
                        budget=BUDGET, dim=D_IN,
                        kernel=KernelSpec("gaussian", gamma=GAMMA))
-    rff = RFFSpec(dim=D_IN, num_features=N_FEATURES, gamma=GAMMA, seed=0)
+    rff = torch_rff_spec(N_FEATURES, GAMMA)
     lin = LearnerConfig(algo="linear_sgd", loss="hinge", dim=D_IN)
     return [
         ("sv_periodic", sv, M_KERNEL, ProtocolConfig(kind="periodic", period=50),
@@ -1815,7 +1846,6 @@ def check_rows_below_threshold(dev, gen) -> None:
     from repro_torch.core import engine, substrate
     from repro_torch.core.learners import LearnerConfig
     from repro_torch.core.protocol import ProtocolConfig
-    from repro_torch.core.rff import RFFSpec
     from repro_torch.core.rkhs import KernelSpec
     from repro_torch.data.streams import susy_stream
 
@@ -1826,8 +1856,7 @@ def check_rows_below_threshold(dev, gen) -> None:
                 algo="kernel_sgd", loss="hinge", eta=0.5, lam=0.01,
                 budget=64, dim=D_IN, kernel=KernelSpec("gaussian",
                                                        gamma=GAMMA))),
-            ("rff_D64", RFFSpec(dim=D_IN, num_features=64, gamma=GAMMA,
-                                seed=0))):
+            ("rff_D64", torch_rff_spec(64, GAMMA))):
         sub = substrate.substrate_of(learner, backend="kernels").on(dev)
         X, Y = susy_stream(T, m, d=D_IN, seed=3)
         step = engine.make_protocol_step(sub, "periodic")
@@ -2102,6 +2131,50 @@ def run_async(ops, totals, runs, refs) -> None:
               "max_memory_allocated": peak,
               **busy, "top_kernels_s": dict(by_kernel.most_common(5)),
               "port_kernels_s": _port_seconds(by_kernel), **line})
+    check_wan_ledger()
+
+
+#: examples/async_susy.py's "WAN, poly staleness" run, at its learners
+#: and budget, 200 rounds (tools/async_bytes_probe.py)
+WAN_T, WAN_M, WAN_D = 200, 4, 8
+
+
+def check_wan_ledger() -> None:
+    """The WAN poly-staleness SV run on the card and on the CPU from the
+    same seeds: every ledger field equal (the CPU's equals the
+    reference's, 252,068 B at 200 rounds)."""
+    from repro_torch.core.learners import LearnerConfig
+    from repro_torch.core.rkhs import KernelSpec
+    from repro_torch.data.streams import susy_stream
+    from repro_torch.runtime import (AsyncProtocolConfig, SystemConfig,
+                                     run_async_simulation)
+
+    X, Y = susy_stream(T=WAN_T, m=WAN_M, d=WAN_D, seed=0)
+    lcfg = LearnerConfig(algo="kernel_sgd", loss="hinge", eta=0.5, lam=0.01,
+                         budget=64, kernel=KernelSpec("gaussian", gamma=0.3),
+                         dim=WAN_D)
+    acfg = AsyncProtocolConfig(kind="dynamic", delta=2.0, alpha=0.6,
+                               staleness="poly", stale_a=0.5, agg_window=1.0)
+    sys_cfg = SystemConfig(seed=0, compute_jitter=0.3, straggler_frac=0.25,
+                           straggler_mult=4.0, straggler_prob=0.3,
+                           base_latency=0.5, latency_jitter=0.5,
+                           bandwidth=1e5)
+    got, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[dev] = run_async_simulation(lcfg, acfg, X, Y, sys_cfg=sys_cfg,
+                                        record_divergence=False, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    card, cpu = got["cuda"], got["cpu"]
+    for field in ("cumulative_bytes", "sync_rounds", "num_syncs",
+                  "total_bytes"):
+        assert np.array_equal(getattr(card, field), getattr(cpu, field)), \
+            f"async WAN ledger: {field} differs between the card and the CPU"
+    emit({"phase": "async", "run": "async_sv_wan_poly", "m": WAN_M,
+          "T": WAN_T, "total_bytes": int(card.total_bytes),
+          "cpu_total_bytes": int(cpu.total_bytes),
+          "num_syncs": int(card.num_syncs), "ledger_equal_cpu": True,
+          "wall_s": secs["cuda"], "cpu_wall_s": secs["cpu"]})
 
 
 # ---------------------------------------------------------------------------
@@ -3491,7 +3564,8 @@ def _smoke_on_card_and_cpu(dev) -> list:
                              grad_clip=1.0),
              ProtocolConfig(kind="dynamic", delta=0.05, per_group=True))):
         step = train.make_train_step(cfg, pcfg, opt_cfg)
-        cpu = train.init_train_state(0, cfg, TRAIN_M, opt_cfg, device="cpu")
+        cpu = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                     TRAIN_M, opt_cfg, device="cpu")
         card = tree_map(lambda x: x.to(dev) if torch.is_tensor(x) else x, cpu)
         rng = np.random.default_rng(0)
         loss_err = 0.0
@@ -3607,13 +3681,15 @@ def _checkpoint_round_trip(dev) -> dict:
 
     cfg = get(LM_ARCH).smoke().with_(dtype="bfloat16")
     opt_cfg = OptimizerConfig(kind="adamw", lr=1e-3)
-    state = train.init_train_state(0, cfg, TRAIN_M, opt_cfg, device=dev)
+    state = train.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, TRAIN_M, opt_cfg, device=dev)
     d = OUT_DIR / "train_ckpt"
     try:
         path = checkpoint.save_step(str(d), 0, state)
         assert checkpoint.latest_step(str(d)) == path
         got = checkpoint.restore(path, train.init_train_state(
-            1, cfg, TRAIN_M, opt_cfg, device=dev))
+            torch.Generator(device=dev).manual_seed(1), cfg, TRAIN_M,
+            opt_cfg, device=dev))
         n = 0
         for g, w in zip(leaves(got), leaves(state)):
             assert g.device == w.device and torch.equal(g, w), "restore differs"
@@ -5602,6 +5678,211 @@ def run_entry_phase(ops, totals) -> None:
           "phase_wall_s": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the reference's seeded draws (prng) at full width
+# ---------------------------------------------------------------------------
+
+#: elements of each drawn leaf the CPU redraws: its first, middle and
+#: last INIT_SLICE flat indices
+INIT_SLICE = 2048
+#: phase 22's depth: at most INIT_LAYERS decoder (and encoder) layers a
+#: config, at full width, cut to a whole number of the first stage's
+#: units (``_init_cfg``).  A layer's keys do not depend on the depth
+#: (``split`` hashes each index alone), so these are the full model's
+#: first layers (``_hold_first_layer_keys`` checks it).  The ten configs
+#: at full depth (51.05 G parameters) took the phase past what the
+#: script's 1,200 s leave it
+INIT_LAYERS = 8
+#: where phase 22's full draws must live
+DRAW_DEVICE = "cuda"
+
+
+def _init_cfg(arch: str):
+    """``arch``'s config at phase 22's depth: the whole units of its
+    first stage that fit in INIT_LAYERS layers (recurrentgemma_9b's
+    (rglru, rglru, attn) twice)."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    unit = len(cfg.stages[0][0])
+    cut = {"n_layers": min(cfg.n_layers, INIT_LAYERS // unit * unit)}
+    if cfg.is_encdec:
+        cut["encoder_layers"] = min(cfg.encoder_layers, INIT_LAYERS)
+    return cfg.with_(**cut)
+
+
+def _hold_first_layer_keys(arch: str) -> int:
+    """The keys of ``_init_cfg(arch)``'s layers equal the first keys of
+    the full config's, encoder blocks too: the cut draws the full
+    model's first layers.  Returns the number of layer keys held."""
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.models.layers import Draws
+    from repro_torch.models.transformer import layer_draws
+
+    full, cut = get(arch), _init_cfg(arch)
+    key = Draws(prng.PRNGKey(0), "cpu")
+    if cut.is_encdec:
+        # init_encdec: a block a key of split(key, 4)[0] (encoder) and [1]
+        ke, kd = key.split(4)[:2]
+        pairs = [(ke.split(cut.encoder_layers), ke.split(full.encoder_layers)),
+                 (kd.split(cut.n_layers), kd.split(full.n_layers))]
+    else:
+        pairs = [(layer_draws(key, cut), layer_draws(key, full))]
+    held = 0
+    for got, want in pairs:
+        assert len(got) <= len(want), arch
+        for a, b in zip(got, want):
+            assert torch.equal(a.source, b.source), arch
+            held += 1
+    return held
+
+
+def _init_slice(n: int) -> torch.Tensor:
+    """The flat indices of a leaf of n elements the CPU redraws."""
+    k = INIT_SLICE
+    if n <= 3 * k:
+        return torch.arange(n)
+    mid = n // 2
+    return torch.cat([torch.arange(k), torch.arange(mid, mid + k),
+                      torch.arange(n - k, n)])
+
+
+def _slice_draws():
+    """A ``Draws`` whose draws are only ``_init_slice`` of each leaf's
+    flat indices (1-D), on the CPU: the same key tree, counters and
+    float math as the full draw."""
+    from repro_torch import prng
+    from repro_torch.models.layers import Draws
+
+    class SliceDraws(Draws):
+        drawn = 0      # draws so far, over the whole key tree
+
+        def normal(self, shape):
+            type(self).drawn += 1
+            return prng.normal_at(self.source,
+                                  _init_slice(math.prod(shape)))
+
+        def uniform(self, shape, minval, maxval):
+            type(self).drawn += 1
+            return prng.uniform_at(self.source,
+                                   _init_slice(math.prod(shape)),
+                                   minval, maxval)
+
+    return SliceDraws
+
+
+def _hold_init_slices(card, cpu, path=()):
+    """Each card leaf against the CPU's: a drawn leaf's slice bitwise,
+    an undrawn leaf (ones, zeros, ``A_log``) whole; RG-LRU's ``Lambda``
+    (torch's log / expm1 of the draw, the card's libm not the CPU's)
+    within the parity pair.  Returns (leaves held, elements held)."""
+    if isinstance(card, dict):
+        out = [_hold_init_slices(card[k], cpu[k], path + (k,)) for k in card]
+    elif isinstance(card, (list, tuple)):
+        out = [_hold_init_slices(a, b, path + (i,))
+               for i, (a, b) in enumerate(zip(card, cpu))]
+    else:
+        got = card if cpu.shape == card.shape else \
+            card.reshape(-1)[_init_slice(card.numel()).to(card.device)]
+        got = got.cpu()
+        assert got.shape == cpu.shape and got.dtype == cpu.dtype, path
+        if path[-1] == "Lambda":
+            np.testing.assert_allclose(got.numpy(), cpu.numpy(),
+                                       rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                       err_msg=str(path))
+        else:
+            bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+            assert torch.equal(got.view(bits[got.dtype]),
+                               cpu.view(bits[cpu.dtype])), path
+        return 1, got.numel()
+    return sum(o[0] for o in out), sum(o[1] for o in out)
+
+
+def _cpu_slices(src: str, arch: str, threads: int):
+    """The CPU's draw of ``arch``'s key tree (``_init_cfg``) at the
+    slices (``_slice_draws``), and the number of draws: a job of phase
+    22's CPU process."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    torch.set_num_threads(threads)
+    from repro_torch import prng
+    from repro_torch.models import encdec, transformer
+
+    cfg = _init_cfg(arch)
+    init = encdec.init_encdec if cfg.is_encdec else transformer.init_lm
+    slice_draws = _slice_draws()
+    slice_draws.drawn = 0
+    cpu = init(slice_draws(prng.PRNGKey(0), "cpu"), cfg)
+    return cpu, slice_draws.drawn
+
+
+def run_init_phase(ops) -> None:
+    """Phase 22 (``init``): each LM config's ``build(cfg).init(0)`` at
+    full width and ``INIT_LAYERS`` depth on the card, one at a time (the
+    reference's ``init(jax.random.PRNGKey(0))``: ``prng``'s threefry, no
+    kernel), its seconds and peak memory; then the leaves against the
+    CPU's draw of the same key tree, every drawn leaf at
+    ``_init_slice``'s flat indices only, every undrawn leaf whole.  The
+    CPU draws run in a spawned process (no CUDA) beside the card's; the
+    card draws with deterministic algorithms off (the draw is a fixed
+    sequence of elementwise ops either way)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.configs import all_arch_ids
+    from repro_torch.models.model import build, count_params
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    archs = all_arch_ids()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = [pool.submit(_cpu_slices, str(ROOT / "src"), arch, 2)
+                for arch in archs]
+        for arch, job in zip(archs, jobs):
+            cfg = _init_cfg(arch)
+            layer_keys = _hold_first_layer_keys(arch)
+            api = build(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params = api.init(0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            assert not dict(ops.LAUNCH_COUNTS), ops.LAUNCH_COUNTS
+            n = count_params(params)
+            held_bytes = sum(x.numel() * x.element_size()
+                             for x in leaves(params))
+            assert all(x.device.type == DRAW_DEVICE
+                       for x in leaves(params)), arch
+            t1 = time.perf_counter()
+            cpu, draws = job.result()
+            wait_s = time.perf_counter() - t1
+            n_leaves, n_held = _hold_init_slices(params, cpu)
+            emit({"phase": "init", "arch": arch, "dtype": cfg.dtype,
+                  "n_layers": cfg.n_layers,
+                  "encoder_layers": cfg.encoder_layers, "params": n, "param_bytes": held_bytes, "init_s": secs,
+                  "ns_per_param": secs / n * 1e9,
+                  "max_memory_allocated": peak, "draws": draws,
+                  "leaves_held": n_leaves, "layer_keys_held": layer_keys,
+                  "elements_held_bitwise_cpu": n_held,
+                  "cpu_wait_s": wait_s,
+                  "hold_s": time.perf_counter() - t1})
+            del params, cpu
+            torch.cuda.empty_cache()
+    finally:
+        pool.shutdown(cancel_futures=True)
+        torch.use_deterministic_algorithms(deterministic)
+    emit({"phase": "init", "archs": len(archs),
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5740,6 +6021,8 @@ def _drive(refs) -> int:
     run_launch_phase(ops)
     torch.cuda.empty_cache()
     run_entry_phase(ops, totals)
+    torch.cuda.empty_cache()
+    run_init_phase(ops)
 
     tuned_op = {"sv_predict": "sv_predict", "quadform": "quadform",
                 "primal_step_rff": "rff_step",

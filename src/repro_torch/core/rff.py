@@ -2,28 +2,31 @@
 
 phi(x) = sqrt(2/D) * cos(W x + b),   W ~ N(0, 2*gamma I),  b ~ U[0, 2pi]
 
-The reference draws (W, b) with JAX's threefry generator, which torch
-cannot reproduce.  So the port's ``RFFSpec`` carries ``W`` and ``b``
-as arrays: parity runs hand it the reference's own draw
-(``repro.core.rff.rff_params(spec)``, via ``convert.rff_spec``).  A
-spec without arrays draws them from a ``torch.Generator`` seeded with
-``seed``; such runs are NOT comparable with the reference's.
+A spec without arrays draws (W, b) as the reference does, with JAX's
+threefry generator (``prng``): ``split(PRNGKey(seed))``, W from the
+first key's normals times the float32 ``sqrt(2 gamma)``, b from the
+second key's uniforms on [0, 2 pi), bitwise the reference's on any
+device.  A spec may also carry ``W`` and ``b`` as arrays, a draw made
+elsewhere (``convert.rff_spec`` hands over the reference's own).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import prng
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class RFFSpec:
     """D random features over d inputs; ``W`` (D, d) and ``b`` (D,) as
-    arrays or tensors, or None to draw them from ``seed``.  Compared by
-    identity (it holds arrays)."""
+    arrays or tensors, or None to draw the reference's from ``seed``.
+    Compared by identity (it holds arrays)."""
 
     dim: int                # input dim d
     num_features: int       # D
@@ -45,7 +48,8 @@ def _f32(v) -> torch.Tensor:
 
 
 def rff_params(spec: RFFSpec) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(W, b) of the spec: its own arrays, or a seeded torch draw."""
+    """(W, b) of the spec: its own arrays, or the reference's draw from
+    ``seed`` (on the CPU)."""
     if spec.W is not None and spec.b is not None:
         W, b = _f32(spec.W), _f32(spec.b)
         if W.shape != (spec.num_features, spec.dim) or b.shape != (spec.num_features,):
@@ -53,10 +57,19 @@ def rff_params(spec: RFFSpec) -> Tuple[torch.Tensor, torch.Tensor]:
                 f"W {tuple(W.shape)} / b {tuple(b.shape)} do not match "
                 f"D={spec.num_features}, d={spec.dim}")
         return W, b
-    gen = torch.Generator().manual_seed(spec.seed)
-    W = torch.randn((spec.num_features, spec.dim), generator=gen) \
-        * math.sqrt(2.0 * spec.gamma)
-    b = torch.rand((spec.num_features,), generator=gen) * (2.0 * math.pi)
+    return _draw(spec.dim, spec.num_features, spec.gamma, spec.seed)
+
+
+@functools.lru_cache(maxsize=16)
+def _draw(dim: int, num_features: int, gamma: float, seed: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's (W, b) for these arguments, drawn once (a spec
+    without arrays is asked for them every round); read-only."""
+    kw, kb = prng.split(prng.PRNGKey(seed))
+    # jnp.sqrt(2.0 * gamma): the float32 root of the float32 product
+    scale = float(np.sqrt(np.float32(2.0 * gamma)))
+    W = prng.normal(kw, (num_features, dim)) * scale
+    b = prng.uniform(kb, (num_features,), maxval=2.0 * math.pi)
     return W, b
 
 

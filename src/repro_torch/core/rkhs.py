@@ -234,12 +234,21 @@ def divergence_stacked(spec: KernelSpec, stacked: SVModel) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def divide(t: torch.Tensor, n) -> torch.Tensor:
+    """t / n, the quotient rounded once on every device.  PyTorch's CUDA
+    divide by a host scalar multiplies by the scalar's rounded
+    reciprocal, which differs from the CPU's (and the reference's)
+    quotient wherever 1 / n is inexact (n = 3); a divisor on t's device
+    takes the true division."""
+    return t / torch.full((), n, dtype=t.dtype, device=t.device)
+
+
 def average_stacked(stacked: SVModel) -> SVModel:
     """Average of a stacked configuration (leading axis m) — Prop. 2:
     the concatenation of all slots with coefficients divided by m
     (budget m * tau)."""
     m, tau, d = stacked.sv.shape
-    alpha = torch.where(stacked.sv_id >= 0, stacked.alpha / m,
+    alpha = torch.where(stacked.sv_id >= 0, divide(stacked.alpha, m),
                         torch.zeros_like(stacked.alpha))
     return SVModel(sv=stacked.sv.reshape(m * tau, d),
                    alpha=alpha.reshape(m * tau),

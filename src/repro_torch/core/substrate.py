@@ -615,7 +615,7 @@ class SVSubstrate(Substrate):
         mix = _concat_sv(parts)
         # the mean over candidates: a division (not a multiplication by
         # 1/n), as average_stacked divides by m
-        mix = mix._replace(alpha=mix.alpha / n)
+        mix = mix._replace(alpha=rkhs.divide(mix.alpha, n))
         union = accounting.idset(mix.sv_id.cpu().numpy())
         fsync, eps = compression.compress(
             self.lcfg.kernel, mix, self.sync_budget, self.compress_method,
@@ -766,7 +766,8 @@ class _PrimalSubstrate(Substrate):
         for st, wt in zip(models, weights):
             w_acc += (1.0 - wt) * rw + wt * st.w.double()
             b_acc += (1.0 - wt) * rb + wt * st.b.double()
-        return cls(w=(w_acc / n).float(), b=(b_acc / n).float()), None, set()
+        return cls(w=rkhs.divide(w_acc, n).float(),
+                   b=rkhs.divide(b_acc, n).float()), None, set()
 
     def adopt_node(self, state, fsync):
         cls = self._state_cls()

@@ -62,13 +62,17 @@ def _stack(tree: PyTree, m: int) -> PyTree:
                     tree)
 
 
-def init_train_state(seed_or_generator: Union[int, torch.Generator],
+def init_train_state(source: Union[int, torch.Tensor, torch.Generator],
                      cfg: ModelConfig, m: int, opt_cfg: OptimizerConfig,
                      device=None) -> TrainState:
     """m learners at one random model (drawn on ``device``; None is the
-    CUDA card), the reference stacked beside them."""
+    CUDA card), the reference stacked beside them.  ``source`` is what
+    ``build(cfg).init`` takes: a seed or a ``prng`` key draws the
+    reference's model (``init_train_state(0, ...)`` is its CLI's
+    ``init_train_state(jax.random.PRNGKey(0), ...)``), a generator
+    PyTorch's."""
     dev = device_mod.resolve(device)
-    params0 = build(cfg).init(seed_or_generator, device=dev)
+    params0 = build(cfg).init(source, device=dev)
     return _train_state(params0, m, opt_cfg, dev)
 
 

@@ -57,7 +57,8 @@ import torch
 
 from ..kernels.flash import flash_attention
 from .config import ModelConfig
-from .layers import apply_mrope, apply_rope, dense, dense_init, rmsnorm
+from .layers import apply_mrope, apply_rope, as_draws, dense, dense_init, \
+    rmsnorm
 
 Params = Dict[str, torch.Tensor]
 
@@ -89,56 +90,64 @@ class MLACache(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def gqa_init(rng, cfg: ModelConfig, dtype) -> Params:
+    rng = as_draws(rng)
     d, hd = cfg.d_model, cfg.hd
+    kq, kk, kv, ko, _ = rng.split(5)
     p = {
-        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, bias=cfg.qkv_bias),
-        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype,
+        "wq": dense_init(kq, d, cfg.n_heads * hd, dtype, bias=cfg.qkv_bias),
+        "wk": dense_init(kk, d, cfg.n_kv_heads * hd, dtype,
                          bias=cfg.qkv_bias),
-        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype,
+        "wv": dense_init(kv, d, cfg.n_kv_heads * hd, dtype,
                          bias=cfg.qkv_bias),
-        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype),
+        "wo": dense_init(ko, cfg.n_heads * hd, d, dtype),
     }
     if cfg.qk_norm:
         p["q_norm"] = {"scale": torch.ones((hd,), dtype=dtype,
-                                           device=gen.device)}
+                                           device=rng.device)}
         p["k_norm"] = {"scale": torch.ones((hd,), dtype=dtype,
-                                           device=gen.device)}
+                                           device=rng.device)}
     return p
 
 
-def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def mla_init(rng, cfg: ModelConfig, dtype) -> Params:
+    rng = as_draws(rng)
     d, H = cfg.d_model, cfg.n_heads
     qk_dim = cfg.mla_nope_dim + cfg.mla_rope_dim
-    ones = dict(dtype=dtype, device=gen.device)
+    ones = dict(dtype=dtype, device=rng.device)
+    keys = rng.split(8)
     return {
-        "w_dq": dense_init(gen, d, cfg.mla_q_lora, dtype),
+        "w_dq": dense_init(keys[0], d, cfg.mla_q_lora, dtype),
         "q_norm": {"scale": torch.ones((cfg.mla_q_lora,), **ones)},
-        "w_uq": dense_init(gen, cfg.mla_q_lora, H * qk_dim, dtype),
-        "w_dkv": dense_init(gen, d, cfg.mla_kv_lora, dtype),
+        "w_uq": dense_init(keys[1], cfg.mla_q_lora, H * qk_dim, dtype),
+        "w_dkv": dense_init(keys[2], d, cfg.mla_kv_lora, dtype),
         "kv_norm": {"scale": torch.ones((cfg.mla_kv_lora,), **ones)},
-        "w_kr": dense_init(gen, d, cfg.mla_rope_dim, dtype),
-        "w_uk": dense_init(gen, cfg.mla_kv_lora, H * cfg.mla_nope_dim,
+        "w_kr": dense_init(keys[3], d, cfg.mla_rope_dim, dtype),
+        "w_uk": dense_init(keys[4], cfg.mla_kv_lora, H * cfg.mla_nope_dim,
                            dtype),
-        "w_uv": dense_init(gen, cfg.mla_kv_lora, H * cfg.mla_v_dim, dtype),
-        "wo": dense_init(gen, H * cfg.mla_v_dim, d, dtype),
+        "w_uv": dense_init(keys[5], cfg.mla_kv_lora, H * cfg.mla_v_dim,
+                           dtype),
+        "wo": dense_init(keys[6], H * cfg.mla_v_dim, d, dtype),
     }
 
 
-def cross_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def cross_init(rng, cfg: ModelConfig, dtype) -> Params:
+    rng = as_draws(rng)
     d, hd = cfg.d_model, cfg.hd
+    kq, kk, kv, ko = rng.split(4)
     return {
-        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype),
-        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype),
-        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype),
-        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype),
+        "wq": dense_init(kq, d, cfg.n_heads * hd, dtype),
+        "wk": dense_init(kk, d, cfg.n_kv_heads * hd, dtype),
+        "wv": dense_init(kv, d, cfg.n_kv_heads * hd, dtype),
+        "wo": dense_init(ko, cfg.n_heads * hd, d, dtype),
     }
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def attn_init(rng, cfg: ModelConfig, dtype) -> Params:
+    rng = as_draws(rng)
     if cfg.attn_kind == "mla":
-        return mla_init(gen, cfg, dtype)
-    return gqa_init(gen, cfg, dtype)
+        return mla_init(rng, cfg, dtype)
+    return gqa_init(rng, cfg, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ import torch
 from . import attention as attn
 from . import transformer
 from .config import ModelConfig
-from .layers import _randn, dense, dense_init, embed, embed_init, mlp, \
+from .layers import as_draws, dense, dense_init, embed, embed_init, mlp, \
     mlp_init, norm_apply, norm_init, sinusoidal_pos
 
 Params = Dict[str, Any]
@@ -45,42 +45,50 @@ MAX_DEC_POS = 8192  # learned decoder position table size
 # ---------------------------------------------------------------------------
 
 
-def _enc_block_init(gen: torch.Generator, cfg: ModelConfig, dt) -> Params:
+def _enc_block_init(rng, cfg: ModelConfig, dt) -> Params:
+    rng = as_draws(rng)
+    k1, k2 = rng.split()
     return {
-        "norm1": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
-        "attn": attn.gqa_init(gen, cfg, dt),
-        "norm2": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt, cfg.act),
+        "norm1": norm_init(cfg.norm_kind, cfg.d_model, dt, rng.device),
+        "attn": attn.gqa_init(k1, cfg, dt),
+        "norm2": norm_init(cfg.norm_kind, cfg.d_model, dt, rng.device),
+        "mlp": mlp_init(k2, cfg.d_model, cfg.d_ff, dt, cfg.act),
     }
 
 
-def _dec_block_init(gen: torch.Generator, cfg: ModelConfig, dt) -> Params:
+def _dec_block_init(rng, cfg: ModelConfig, dt) -> Params:
+    rng = as_draws(rng)
+    k1, k2, k3 = rng.split(3)
     return {
-        "norm1": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
-        "self_attn": attn.gqa_init(gen, cfg, dt),
-        "norm2": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
-        "cross_attn": attn.cross_init(gen, cfg, dt),
-        "norm3": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt, cfg.act),
+        "norm1": norm_init(cfg.norm_kind, cfg.d_model, dt, rng.device),
+        "self_attn": attn.gqa_init(k1, cfg, dt),
+        "norm2": norm_init(cfg.norm_kind, cfg.d_model, dt, rng.device),
+        "cross_attn": attn.cross_init(k2, cfg, dt),
+        "norm3": norm_init(cfg.norm_kind, cfg.d_model, dt, rng.device),
+        "mlp": mlp_init(k3, cfg.d_model, cfg.d_ff, dt, cfg.act),
     }
 
 
-def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Parameters drawn from ``gen`` on its device."""
+def init_encdec(rng, cfg: ModelConfig) -> Params:
+    """Parameters drawn from ``rng`` on its device, the reference's key
+    tree: the embedding from ``fold_in(key, 1)``, then split 4 ways
+    (encoder, decoder, head, decoder positions), a block a key."""
+    rng = as_draws(rng)
     dt = transformer.torch_dtype(cfg)
     d = cfg.d_model
+    ke, kd, kh, kp = rng.split(4)
     params: Params = {
-        "embed": embed_init(gen, cfg.padded_vocab, d, dt),
-        "dec_pos": {"table": (_randn(gen, MAX_DEC_POS, d) * 0.01).to(dt)},
-        "enc_blocks": [_enc_block_init(gen, cfg, dt)
-                       for _ in range(cfg.encoder_layers)],
-        "enc_norm": norm_init(cfg.norm_kind, d, dt, gen.device),
-        "dec_blocks": [_dec_block_init(gen, cfg, dt)
-                       for _ in range(cfg.n_layers)],
-        "dec_norm": norm_init(cfg.norm_kind, d, dt, gen.device),
+        "embed": embed_init(rng.fold_in(1), cfg.padded_vocab, d, dt),
+        "dec_pos": {"table": (kp.normal((MAX_DEC_POS, d)) * 0.01).to(dt)},
+        "enc_blocks": [_enc_block_init(k, cfg, dt)
+                       for k in ke.split(cfg.encoder_layers)],
+        "enc_norm": norm_init(cfg.norm_kind, d, dt, rng.device),
+        "dec_blocks": [_dec_block_init(k, cfg, dt)
+                       for k in kd.split(cfg.n_layers)],
+        "dec_norm": norm_init(cfg.norm_kind, d, dt, rng.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, d, cfg.padded_vocab, dt)
+        params["lm_head"] = dense_init(kh, d, cfg.padded_vocab, dt)
     return params
 
 

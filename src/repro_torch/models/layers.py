@@ -5,27 +5,78 @@ and layouts: a dense weight is ``(d_in, d_out)`` and the layer computes
 ``x @ w + b``.  Norms and RoPE compute in float32 and return the input
 dtype, as the reference's do.
 
-Initializers take an explicit ``torch.Generator`` and draw on its
-device.  They follow the reference's scales, not its numbers: JAX's
-keys and PyTorch's generators give different draws from the same seed,
-so the tests carry the reference's parameters across
-(``convert.lm_params``).  ``constrain`` is the identity: the port has
-no GSPMD to take a sharding constraint.
+Initializers draw from a ``Draws``: a port key (``prng``), whose
+``split`` / ``fold_in`` follow the reference's key tree and whose
+numbers are the reference's, or a ``torch.Generator``, one stream in
+call order (``split`` and ``fold_in`` hand it on) with the reference's
+scales but PyTorch's numbers.  ``constrain`` is the identity: the port
+has no GSPMD to take a sharding constraint.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .. import prng
 
 Params = Dict[str, torch.Tensor]
 
 
-def _randn(gen: torch.Generator, *shape) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32)
+class Draws:
+    """The source of an initializer's random numbers, on ``device``: a
+    port key (``prng.PRNGKey``'s kind), drawn as the reference's
+    ``jax.random`` draws, or a ``torch.Generator`` drawn in call order
+    (``split`` / ``fold_in`` return the same stream)."""
+
+    def __init__(self, source, device):
+        self.source = source
+        self.device = torch.device(device)
+        self.is_key = not isinstance(source, torch.Generator)
+
+    def split(self, n: int = 2) -> List["Draws"]:
+        if not self.is_key:
+            return [self] * n
+        return [type(self)(k, self.device)
+                for k in prng.split(self.source, n)]
+
+    def fold_in(self, data: int) -> "Draws":
+        if not self.is_key:
+            return self
+        return type(self)(prng.fold_in(self.source, data), self.device)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        """Standard normal float32 values."""
+        if self.is_key:
+            return prng.normal(self.source, shape, device=self.device)
+        return torch.randn(tuple(shape), generator=self.source,
+                           device=self.device, dtype=torch.float32)
+
+    def uniform(self, shape: Sequence[int], minval: float,
+                maxval: float) -> torch.Tensor:
+        """Uniform float32 values in [minval, maxval)."""
+        if self.is_key:
+            return prng.uniform(self.source, shape, minval, maxval,
+                                device=self.device)
+        return torch.rand(tuple(shape), generator=self.source,
+                          device=self.device, dtype=torch.float32) \
+            * (maxval - minval) + minval
+
+
+def as_draws(rng) -> Draws:
+    """A ``torch.Generator`` as the ``Draws`` of its stream; a ``Draws``
+    as itself."""
+    if isinstance(rng, torch.Generator):
+        return Draws(rng, rng.device)
+    return rng
+
+
+def rsqrt_f32(n) -> float:
+    """``1.0 / jnp.sqrt(n)``: the float32 root, then a float32 divide."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(n)))
 
 
 def expand_left(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -89,12 +140,18 @@ def norm_apply(kind: str, p: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+def dense_init(rng, d_in: int, d_out: int, dtype,
                bias: bool = False, scale: Optional[float] = None) -> Params:
-    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": (_randn(gen, d_in, d_out) * s).to(dtype)}
+    rng = as_draws(rng)
+    if scale is not None:
+        s = scale
+    else:
+        # the reference's float32 root and divide (a generator keeps the
+        # float64 quotient it always took)
+        s = rsqrt_f32(d_in) if rng.is_key else 1.0 / math.sqrt(d_in)
+    p = {"w": (rng.normal((d_in, d_out)) * s).to(dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=rng.device)
     return p
 
 
@@ -105,8 +162,9 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
-    return {"table": (_randn(gen, vocab, d) * 0.02).to(dtype)}
+def embed_init(rng, vocab: int, d: int, dtype) -> Params:
+    rng = as_draws(rng)
+    return {"table": (rng.normal((vocab, d)) * 0.02).to(dtype)}
 
 
 class _Embedding(torch.autograd.Function):
@@ -196,14 +254,16 @@ def sinusoidal_pos(seq_len: int, d: int, dtype, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype,
+def mlp_init(rng, d: int, d_ff: int, dtype,
              act: str = "silu_glu") -> Params:
+    rng = as_draws(rng)
+    k1, k2, k3 = rng.split(3)
     if act == "silu_glu":
-        return {"wi": dense_init(gen, d, d_ff, dtype),
-                "wg": dense_init(gen, d, d_ff, dtype),
-                "wo": dense_init(gen, d_ff, d, dtype)}
-    return {"wi": dense_init(gen, d, d_ff, dtype, bias=True),
-            "wo": dense_init(gen, d_ff, d, dtype, bias=True)}
+        return {"wi": dense_init(k1, d, d_ff, dtype),
+                "wg": dense_init(k2, d, d_ff, dtype),
+                "wo": dense_init(k3, d_ff, d, dtype)}
+    return {"wi": dense_init(k1, d, d_ff, dtype, bias=True),
+            "wo": dense_init(k2, d_ff, d, dtype, bias=True)}
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu_glu") -> torch.Tensor:
@@ -219,10 +279,11 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu_glu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def conv1d_init(gen: torch.Generator, width: int, channels: int,
-                dtype) -> Params:
-    return {"w": (_randn(gen, width, channels) / math.sqrt(width)).to(dtype),
-            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+def conv1d_init(rng, width: int, channels: int, dtype) -> Params:
+    rng = as_draws(rng)
+    # math.sqrt(width) rounded to float32 is jnp.sqrt(width)
+    return {"w": (rng.normal((width, channels)) / math.sqrt(width)).to(dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=rng.device)}
 
 
 def causal_conv1d(p: Params, x: torch.Tensor,

@@ -2,7 +2,7 @@
 ``repro/models/model.py``).
 
     api = build(cfg)
-    params = api.init(seed_or_generator)        # device=None: the CUDA card
+    params = api.init(seed_key_or_generator)    # device=None: the CUDA card
     loss   = api.loss(params, batch)            # train
     logits, aux = api.forward(params, batch)
     caches = api.init_caches(B, length)
@@ -14,13 +14,15 @@
   vlm:       embeds (B, S_img, d) + tokens (B, S_txt) + labels (B, S_txt)
   audio:     frames (B, F, d) + tokens (B, S) + labels (B, S)
 ``init`` and ``init_caches`` resolve ``device=None`` to the CUDA card
-and raise where there is none; a generator passed to ``init`` must live
-on that device.  Every family of the reference runs: the dense
-(``attn``, sliding-window too, with M-RoPE or MLA), MoE (``moe``), VLM
-(``embeds`` before the tokens), SSM (``ssm``) and hybrid (``rglru``
-with local attention) decoders, whose ``init_caches`` gives one
-``KVCache`` (a ring when ``cfg.window > 0``), ``MLACache``, ``SSMState``
-or ``LRUState`` a layer in pattern order; and the encoder-decoder
+and raise where there is none.  ``init(seed)`` and ``init(key)`` (a
+``prng`` key) draw the reference's numbers, ``init(jax.random.PRNGKey
+(seed))``'s, on any device; a ``torch.Generator`` draws PyTorch's, in
+call order, and must live on that device.  Every family of the
+reference runs: the dense (``attn``, sliding-window too, with M-RoPE or
+MLA), MoE (``moe``), VLM (``embeds`` before the tokens), SSM (``ssm``)
+and hybrid (``rglru`` with local attention) decoders, whose
+``init_caches`` gives one ``KVCache`` (a ring when ``cfg.window > 0``),
+``MLACache``, ``SSMState`` or ``LRUState`` a layer in pattern order; and the encoder-decoder
 (``cfg.encoder_layers > 0``, ``models/encdec.py``), whose caches are a
 self-attention ``KVCache`` and the cross K / V a decoder layer.
 """
@@ -32,8 +34,10 @@ from typing import Any, Callable, Union
 import torch
 
 from .. import device as device_mod
+from .. import prng
 from . import encdec, transformer
 from .config import ModelConfig
+from .layers import Draws
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,14 +51,21 @@ class ModelAPI:
     decode: Callable[..., Any]
 
 
-def _generator(gen: Union[int, torch.Generator], device) -> torch.Generator:
+Source = Union[int, torch.Tensor, torch.Generator]
+
+
+def draws(source: Source, device=None) -> Draws:
+    """The initializers' draws from a seed (``prng.PRNGKey(seed)``, as
+    the reference's CLI keys its init), a ``prng`` key or a generator."""
     dev = device_mod.resolve(device)
-    if isinstance(gen, int):
-        return torch.Generator(device=dev).manual_seed(gen)
-    if gen.device.type != dev.type:
-        raise ValueError(f"the generator is on {gen.device}, the model "
-                         f"on {dev}")
-    return gen
+    if isinstance(source, torch.Generator):
+        if source.device.type != dev.type:
+            raise ValueError(f"the generator is on {source.device}, the "
+                             f"model on {dev}")
+        return Draws(source, source.device)
+    if isinstance(source, int):
+        source = prng.PRNGKey(source)
+    return Draws(source, dev)
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
@@ -64,8 +75,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
 
 def _build_decoder_only(cfg: ModelConfig) -> ModelAPI:
-    def init(gen: Union[int, torch.Generator], device=None):
-        return transformer.init_lm(_generator(gen, device), cfg)
+    def init(source: Source, device=None):
+        return transformer.init_lm(draws(source, device), cfg)
 
     def loss(params, batch):
         return transformer.lm_loss(params, cfg, batch["tokens"],
@@ -91,8 +102,8 @@ def _build_decoder_only(cfg: ModelConfig) -> ModelAPI:
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelAPI:
-    def init(gen: Union[int, torch.Generator], device=None):
-        return encdec.init_encdec(_generator(gen, device), cfg)
+    def init(source: Source, device=None):
+        return encdec.init_encdec(draws(source, device), cfg)
 
     def loss(params, batch):
         return encdec.encdec_loss(params, cfg, batch["frames"],

@@ -48,18 +48,27 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _randn, dense, dense_init
+from .layers import as_draws, dense, dense_init
 
 Params = Dict[str, torch.Tensor]
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def moe_init(rng, cfg: ModelConfig, dtype) -> Params:
+    rng = as_draws(rng)
     d, dff, E = cfg.d_model, cfg.expert_ff, cfg.n_experts
+    kr, ki, kg, ko = rng.split(4)
+    def scaled(k, shape, n):
+        # the reference multiplies by the float64 1.0 / math.sqrt(n) (taken
+        # as float32); a generator keeps its division by math.sqrt(n)
+        if k.is_key:
+            return (k.normal(shape) * (1.0 / math.sqrt(n))).to(dtype)
+        return (k.normal(shape) / math.sqrt(n)).to(dtype)
+
     return {
-        "router": dense_init(gen, d, E, dtype),
-        "wi": (_randn(gen, E, d, dff) / math.sqrt(d)).to(dtype),
-        "wg": (_randn(gen, E, d, dff) / math.sqrt(d)).to(dtype),
-        "wo": (_randn(gen, E, dff, d) / math.sqrt(dff)).to(dtype),
+        "router": dense_init(kr, d, E, dtype),
+        "wi": scaled(ki, (E, d, dff), d),
+        "wg": scaled(kg, (E, d, dff), d),
+        "wo": scaled(ko, (E, dff, d), dff),
     }
 
 

@@ -35,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import causal_conv1d, conv1d_init, conv1d_step, dense, \
-    dense_init, expand_left
+from .layers import as_draws, causal_conv1d, conv1d_init, conv1d_step, \
+    dense, dense_init, expand_left
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,21 +48,23 @@ class LRUState(NamedTuple):
     conv_buf: torch.Tensor    # (B, conv_width-1, W)
 
 
-def rglru_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
-    """Parameters drawn from ``gen`` on its device; ``Lambda`` so that
+def rglru_init(rng, cfg: ModelConfig, dtype) -> Params:
+    """Parameters drawn from ``rng`` on its device; ``Lambda`` so that
     a ~ U[0.9, 0.999] at r = 1 (softplus^-1(-log(u) / c), the Griffin
     init)."""
+    rng = as_draws(rng)
     d, W = cfg.d_model, cfg.lru_dim
-    w_y = dense_init(gen, d, W, dtype)
-    w_x = dense_init(gen, d, W, dtype)
-    conv = conv1d_init(gen, cfg.conv_width, W, dtype)
-    w_a = dense_init(gen, W, W, dtype, bias=True)
-    w_i = dense_init(gen, W, W, dtype, bias=True)
-    u = torch.rand((W,), generator=gen, device=gen.device,
-                   dtype=torch.float32) * (0.999 - 0.9) + 0.9
+    k1, k2, k3, k4, k5, k6 = rng.split(6)
+    w_y = dense_init(k1, d, W, dtype)
+    w_x = dense_init(k2, d, W, dtype)
+    conv = conv1d_init(k3, cfg.conv_width, W, dtype)
+    w_a = dense_init(k4, W, W, dtype, bias=True)
+    w_i = dense_init(k5, W, W, dtype, bias=True)
+    u = k6.uniform((W,), 0.9, 0.999)
     lam = torch.log(torch.expm1(-torch.log(u) / _C))
     return {"w_y": w_y, "w_x": w_x, "conv": conv, "w_a": w_a, "w_i": w_i,
-            "Lambda": lam, "w_o": dense_init(gen, W, d, dtype)}
+            "Lambda": lam,
+            "w_o": dense_init(rng.fold_in(7), W, d, dtype)}
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

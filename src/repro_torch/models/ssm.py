@@ -23,9 +23,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import xla_math
 from .config import ModelConfig
-from .layers import causal_conv1d, conv1d_init, conv1d_step, dense, \
-    dense_init, rmsnorm
+from .layers import as_draws, causal_conv1d, conv1d_init, conv1d_step, \
+    dense, dense_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
 
@@ -58,47 +59,19 @@ def _linspace_1_16(n: int) -> np.ndarray:
     return np.concatenate([out, np.array([16.0], f32)])
 
 
-# Cephes' logf coefficients, as float32 (Eigen's plog_float)
-_LOG_P = tuple(np.float32(v) for v in (
-    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
-    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
-    3.3333331174e-1))
-_LOG_Q1 = np.float32(-2.12194440e-4)
-_LOG_Q2 = np.float32(0.693359375)
-
-
 def _fma(a, b, c) -> np.ndarray:
-    """a * b + c rounded once to float32 (the product is exact in
-    float64)."""
-    f64 = np.float64
-    return (np.asarray(a, f64) * np.asarray(b, f64)
-            + np.asarray(c, f64)).astype(np.float32)
+    """a * b + c rounded once to float32 (``xla_math.fma``)."""
+    return xla_math.fma(*(torch.as_tensor(np.asarray(v, np.float32))
+                          for v in (a, b, c))).numpy()
 
 
 def _log_f32(x: np.ndarray) -> np.ndarray:
     """``jnp.log`` of positive normal float32 values as XLA's CPU backend
-    computes it: Eigen's ``plog_float`` with each product fused into the
-    sum that takes it, in float32, so ``A_log`` comes out bitwise the
+    computes it (``xla_math.log``), so ``A_log`` comes out bitwise the
     reference's (tests/test_torch_ssm.py checks 2e5 values)."""
-    f32 = np.float32
-    x = np.asarray(x, f32)
-    assert np.all(x >= np.finfo(f32).tiny) and np.all(np.isfinite(x))
-    bits = x.view(np.int32)
-    e = ((bits >> 23) - 127).astype(f32) + f32(1.0)
-    m = ((bits & np.int32(-2139095041)) | np.int32(0x3F000000)).view(f32)
-    small = m < f32(0.707106781186547524)
-    e = e - np.where(small, f32(1.0), f32(0.0))
-    x = (m - f32(1.0)) + np.where(small, m, f32(0.0))
-    x2 = x * x
-    x3 = x2 * x
-    p = _LOG_P
-    y = _fma(_fma(x, p[0], p[1]), x, p[2])
-    y1 = _fma(_fma(x, p[3], p[4]), x, p[5])
-    y2 = _fma(_fma(x, p[6], p[7]), x, p[8])
-    y = _fma(_fma(y, x3, y1), x3, y2)
-    y = _fma(y, x3, _LOG_Q1 * e)
-    x = _fma(f32(-0.5), x2, x) + y
-    return _fma(_LOG_Q2, e, x)
+    x = np.asarray(x, np.float32)
+    assert np.all(x >= np.finfo(np.float32).tiny) and np.all(np.isfinite(x))
+    return xla_math.log(torch.from_numpy(x.copy())).numpy()
 
 
 def a_log_init(H: int) -> np.ndarray:
@@ -112,19 +85,21 @@ def a_log_init(H: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def ssm_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def ssm_init(rng, cfg: ModelConfig, dtype) -> Params:
+    rng = as_draws(rng)
     d, din, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
     G, N = cfg.ssm_groups, cfg.ssm_state
-    dev = gen.device
+    dev = rng.device
     f32 = torch.float32
+    k1, k2, k3, _ = rng.split(4)
     return {
-        "in_proj": dense_init(gen, d, 2 * din + 2 * G * N + H, dtype),
-        "conv": conv1d_init(gen, cfg.ssm_conv, din + 2 * G * N, dtype),
+        "in_proj": dense_init(k1, d, 2 * din + 2 * G * N + H, dtype),
+        "conv": conv1d_init(k2, cfg.ssm_conv, din + 2 * G * N, dtype),
         "A_log": torch.as_tensor(a_log_init(H), device=dev),
         "D": torch.ones((H,), dtype=f32, device=dev),
         "dt_bias": torch.zeros((H,), dtype=f32, device=dev),
         "out_norm": {"scale": torch.ones((din,), dtype=dtype, device=dev)},
-        "out_proj": dense_init(gen, din, d, dtype),
+        "out_proj": dense_init(k3, din, d, dtype),
     }
 
 

@@ -34,7 +34,7 @@ its own assembly, ``models/encdec.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -43,8 +43,8 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import dense, dense_init, embed, embed_init, mlp, mlp_init, \
-    norm_apply, norm_init
+from .layers import Draws, as_draws, dense, dense_init, embed, embed_init, \
+    mlp, mlp_init, norm_apply, norm_init
 
 Params = Dict[str, Any]
 
@@ -71,26 +71,28 @@ def _check_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+def block_init(rng, cfg: ModelConfig, kind: str) -> Params:
+    rng = as_draws(rng)
     _check_kind(kind)
-    dt, d = torch_dtype(cfg), cfg.d_model
+    dt, d, dev = torch_dtype(cfg), cfg.d_model, rng.device
+    k1, k2, _, _ = rng.split(4)
     if kind == "ssm":
-        return {"norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
-                "ssm": ssm_mod.ssm_init(gen, cfg, dt)}
+        return {"norm1": norm_init(cfg.norm_kind, d, dt, dev),
+                "ssm": ssm_mod.ssm_init(k1, cfg, dt)}
     if kind == "rglru":
-        return {"norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
-                "rglru": rglru_mod.rglru_init(gen, cfg, dt),
-                "norm2": norm_init(cfg.norm_kind, d, dt, gen.device),
-                "mlp": mlp_init(gen, d, cfg.d_ff, dt, cfg.act)}
+        return {"norm1": norm_init(cfg.norm_kind, d, dt, dev),
+                "rglru": rglru_mod.rglru_init(k1, cfg, dt),
+                "norm2": norm_init(cfg.norm_kind, d, dt, dev),
+                "mlp": mlp_init(k2, d, cfg.d_ff, dt, cfg.act)}
     out = {
-        "norm1": norm_init(cfg.norm_kind, d, dt, gen.device),
-        "attn": attn.attn_init(gen, cfg, dt),
-        "norm2": norm_init(cfg.norm_kind, d, dt, gen.device),
+        "norm1": norm_init(cfg.norm_kind, d, dt, dev),
+        "attn": attn.attn_init(k1, cfg, dt),
+        "norm2": norm_init(cfg.norm_kind, d, dt, dev),
     }
     if kind == "moe":
-        out["moe"] = moe_mod.moe_init(gen, cfg, dt)
+        out["moe"] = moe_mod.moe_init(k2, cfg, dt)
     else:
-        out["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, cfg.act)
+        out["mlp"] = mlp_init(k2, d, cfg.d_ff, dt, cfg.act)
     return out
 
 
@@ -237,16 +239,33 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, cache, x_t, pos):
 # ---------------------------------------------------------------------------
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Parameters drawn from ``gen`` on its device."""
+def layer_draws(rng, cfg: ModelConfig) -> List[Draws]:
+    """Each layer's draws, in pattern order, from the reference's stage
+    keys: stage si takes ``fold_in(ks, si)`` split into its repeats, and
+    each repeat splits into its unit's blocks (the reference's
+    ``jax.vmap(init_unit)`` draws each repeat from its own key)."""
+    rng = as_draws(rng)
+    out = []
+    for si, (unit, repeats) in enumerate(cfg.stages):
+        for k in rng.fold_in(si).split(repeats):
+            out.extend(k.split(len(unit)))
+    return out
+
+
+def init_lm(rng, cfg: ModelConfig) -> Params:
+    """Parameters drawn from ``rng`` on its device, the reference's key
+    tree: split 3 ways (embedding, head, stages)."""
+    rng = as_draws(rng)
     dt = torch_dtype(cfg)
+    ke, kh, ks = rng.split(3)
     params: Params = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
-        "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, gen.device),
+        "embed": embed_init(ke, cfg.padded_vocab, cfg.d_model, dt),
+        "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, rng.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab, dt)
-    params["layers"] = [block_init(gen, cfg, kind) for kind in cfg.pattern]
+        params["lm_head"] = dense_init(kh, cfg.d_model, cfg.padded_vocab, dt)
+    params["layers"] = [block_init(k, cfg, kind) for k, kind
+                        in zip(layer_draws(ks, cfg), cfg.pattern)]
     return params
 
 

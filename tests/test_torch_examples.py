@@ -13,12 +13,13 @@ assert their own contracts inline (the serving protocol view bitwise
 part of the check.
 
 The random Fourier features: the reference draws ``RFFSpec(seed=0)``'s
-(W, b) with JAX's threefry generator, which torch cannot reproduce, and
-the port's spec without arrays draws them from a torch generator
-(src/repro_torch/core/rff.py).  So the port's scripts are run here with
+(W, b) with JAX's threefry generator, and the port's spec without
+arrays draws the same bits with its own threefry (``repro_torch.prng``,
+src/repro_torch/core/rff.py).  The port's scripts run here twice: with
 their ``RFFSpec`` handing in the reference's own draw for the same
-arguments (``reference_rff_spec``), as every RFF parity test of the port
-does (``convert.rff_spec``); on their own they print other RFF numbers.
+arguments (``reference_rff_spec``, ``convert.rff_spec``), and with their
+own ``RFFSpec(seed)`` (``RFF_SCRIPTS``); both print the reference's
+lines.
 
 The flag-less scripts run at their fixed sizes; ``async_susy``,
 ``susy_distributed`` and ``stock_nowcast`` at the reduced ``--rounds`` /
@@ -92,11 +93,12 @@ def reference_rff_spec(dim, num_features, gamma=1.0, seed=0):
     return convert.rff_spec(spec, *jrff.rff_params(spec))
 
 
-def port_output(rel: str, argv=()) -> str:
+def port_output(rel: str, argv=(), hand_in: bool = True) -> str:
     """stdout of the port's script ``rel`` through ``main`` on the CPU,
-    its random features the reference's draw."""
+    its random features the reference's draw handed in, or with
+    ``hand_in=False`` its own."""
     script = load_script(rel)
-    if hasattr(script, "RFFSpec"):
+    if hand_in and hasattr(script, "RFFSpec"):
         script.RFFSpec = reference_rff_spec
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -160,6 +162,19 @@ def test_example_prints_the_reference_table(name, reference):
     want = reference(name)
     got = port_output(f"examples/torch/{name}.py", SCRIPTS[name])
     assert_same_output(got, want, name)
+
+
+#: the scripts that draw random features from ``RFFSpec(seed)``
+RFF_SCRIPTS = ("rff_quickstart", "serve_quickstart")
+
+
+@pytest.mark.parametrize("name", RFF_SCRIPTS)
+def test_rff_example_prints_the_reference_table_from_its_own_draw(
+        name, reference):
+    rel = f"examples/torch/{name}.py"
+    assert hasattr(load_script(rel), "RFFSpec")
+    got = port_output(rel, SCRIPTS[name], hand_in=False)
+    assert_same_output(got, reference(name), name)
 
 
 def test_half_unit_and_the_comparison_refuse_what_they_should():

@@ -8,8 +8,9 @@ captured, its exit code checked); the port's through ``main(["--device",
 bytes for each of the 3 substrates x 2 kinds x 2 backends through the
 engine, the async harness and serving, every cell ``ok=True``, and each
 cell's two backends bitwise equal in their ledgers.  The RFF cells hold
-the reference's draw of the random features (tests/test_torch_examples.py,
-``reference_rff_spec``).  At the matrix's sizes the port's engage-aware
+the reference's draw of the random features, handed in
+(tests/test_torch_examples.py, ``reference_rff_spec``) and, in a second
+run, drawn by the port's own ``RFFSpec(seed)``.  At the matrix's sizes the port's engage-aware
 dispatch hands a kernel one call only: the SV ``kernels`` cells' async
 aggregates truncate 192 slots through ``quadform`` (the reference
 compresses its aggregate on the plain path whatever its backend).
@@ -37,6 +38,12 @@ def test_matrix_lines_equal_the_reference_with_kernels_for_pallas(
         reference, port):
     want = reference.replace("backend=pallas", "backend=kernels")
     assert port.splitlines() == want.splitlines()
+
+
+def test_matrix_lines_equal_the_reference_from_its_own_draw(reference):
+    want = reference.replace("backend=pallas", "backend=kernels")
+    own = port_output(PORT_TOOL, hand_in=False)
+    assert own.splitlines() == want.splitlines()
 
 
 def test_matrix_has_every_cell_ok_and_bitwise_backends(port):
